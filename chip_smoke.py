@@ -3,28 +3,47 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA device and `nvcc`; imports no JAX. It exits non-zero, and
-prints no result line, if anything below fails or no CUDA device is
-present.
+Needs one CUDA device and `nvcc`; imports no JAX and nothing of the JAX
+package. It exits non-zero, and prints no result line, if anything below
+fails or no CUDA device is present.
 
 1. Device: the card's name and power limit, the CUDA versions, and the
-   build of every kernel under score_tpu_torch/csrc (nvcc, sm_90a).
-2. Kernels: each CUDA kernel against its plain PyTorch version on the
-   card, at the shapes serving gives it. The gather must be exact; the
-   co-attention agrees to 1e-4 in f32 and 2e-2 in bf16 (f32 inside, other
-   summation order, one bf16 rounding of the output). CUDA-event times of
-   kernel and plain version.
-3. End to end: ScoringService on the configs3 model at the benchmark's
-   width (bench.py: d=32, hidden 64, MLP 128/64, T=9, n=m=10, bf16 compute)
-   over a synthetic 50k-user / 100k-item / 2M-event dataset, with random
-   weights from a seed. score, score_batch and a full-catalogue topk run
-   through both kernels (launch counters checked), and a 4 x 256 request
+   build of every kernel under score_tpu_torch/csrc (one nvcc per source,
+   all at once, sm_90a), with ptxas's register and spill counts.
+2. Forward kernels against their plain PyTorch versions on the card, at
+   the shapes serving and training give them. The gather must be exact;
+   the co-attention agrees to 1e-4 in f32 and 2e-2 in bf16 (f32 inside,
+   other summation order, one bf16 rounding of the output).
+2b. Backward kernels against their plain versions. The scatter-add is
+   exact on integer-valued sources and within 1e-5 relative of
+   `index_add_` on random ones (f32 atomics add in no fixed order); the
+   co-attention backward's five gradients agree to 1e-4 in f32 and 2e-2 in
+   bf16, relative to each gradient's largest value.
+   For every kernel: CUDA-event times of kernel, plain version and, where
+   one PyTorch call computes the same function, that call; and the bound,
+   the least time the card could take for the work (bytes over 3.35 TB/s
+   or f32 operations over 67 TFLOP/s, whichever is larger).
+3. Serving: ScoringService on the configs3 model at the benchmark's width
+   (bench.py: d=32, hidden 64, MLP 128/64, T=9, n=m=10, bf16 compute) over
+   a synthetic 50k-user / 100k-item / 2M-event dataset, with random weights
+   from a seed. score, score_batch and a full-catalogue topk run through
+   the forward kernels (launch counters checked), and a 4 x 256 request
    matches the same service on the CPU, in f32 and in bf16. p50 latency,
    score_batch throughput and topk time.
+4. Training: the configs3 train step as bench.py configures it (batch
+   4096, bf16 over f32 master weights, one importance-weighted in-batch
+   negative, tables every 2nd step at 2x lr, Adam 1e-3, L2 1e-5) on the
+   same dataset from flax-faithful init (seed 0). 3 warm-up steps (tables
+   must change on steps 0 and 2 only), then 50 timed steps through
+   train_loop with all four kernels' launches counted; the loss must fall.
+   A torch.profiler window gives device time by op. Then 3 steps of a
+   small f32 model (configs3's default widths, batch 256) on the card and
+   on the CPU from the same weights, batches and shifts must agree.
 
-The last line is {"ok": true, "device": {...}}; the line before it lists
-each kernel with its launches in the serving run, its largest error
-against the plain version, and its and the plain version's time.
+The line before the last lists each kernel with its launches in the
+training run, its largest error against the plain version, and its, the
+plain version's and the library call's time beside its bound; the last
+line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -43,10 +62,17 @@ SEED = 0
 T, FAN, D = 9, 10, 32                 # bench.py's slots, fan-out, width
 USERS, ITEMS, EVENTS = 50_000, 100_000, 2_000_000
 ROWS, WIDE = 16, 4096                 # score_batch: 16 users x 4096 items
+BATCH = 4096                          # bench.py's training batch
+WARMUP_STEPS, TIMED_STEPS = 3, 50
 F32_TOL = 1e-4
 BF16_TOL = 2e-2
 CPU_TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
            "bfloat16": dict(rtol=2e-2, atol=2e-3)}
+TRAIN_CPU_TOL = dict(rtol=1e-4, atol=1e-5)
+# the card's published peaks (H100 SXM): HBM bytes/s, f32 outside the
+# tensor cores (the kernels here do f32 FMAs on the CUDA cores)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
 
 
 def log(*args) -> None:
@@ -75,6 +101,19 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: compulsory bytes at the HBM
+    rate or f32 operations at the peak rate, whichever is longer."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
 # --- phase 1 ---------------------------------------------------------------
 
 def phase_device(card: str) -> None:
@@ -92,18 +131,20 @@ def phase_device(card: str) -> None:
     for name, (secs, out) in sorted(_build.build_log.items()):
         log(f"[device] nvcc {name}: {secs:.2f} s")
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"[device]   {line.strip()}")
 
 
-# --- phase 2 ---------------------------------------------------------------
+# --- phase 2: forward kernels ----------------------------------------------
 
 def phase_gather(dev, gen) -> dict:
     from score_tpu_torch.kernels.gather import gather_rows, gather_rows_plain
-    cases = [  # (label, table, ids); shapes as serving gives them
+    cases = [  # (label, table, ids); shapes as serving and training give
         ("bf16 [100032,32] ids [16,4096,9,10]",
          torch.randn(100032, D, generator=gen, device=dev).bfloat16(),
          (16, 4096, T, FAN)),
+        ("f32 [90560,32] ids [4096,9,10] (training)",
+         torch.randn(90560, D, generator=gen, device=dev), (BATCH, T, FAN)),
         ("f32 [100032,32] ids [1000003]",
          torch.randn(100032, D, generator=gen, device=dev), (1000003,)),
         ("int32 [150000,90] ids [16,4096]",
@@ -114,7 +155,7 @@ def phase_gather(dev, gen) -> dict:
                        dtype=torch.int32), (65537,)),
     ]
     worst = 0.0
-    timing = None
+    line = None
     for label, table, shape in cases:
         ids = torch.randint(0, table.shape[0], shape, generator=gen,
                             device=dev, dtype=torch.int32)
@@ -123,16 +164,22 @@ def phase_gather(dev, gen) -> dict:
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(f"gather {label}: kernel != plain")
-        err = (got.float() - want.float()).abs().max().item()
-        worst = max(worst, err)
+        worst = max(worst, (got.float() - want.float()).abs().max().item())
         ms = cuda_ms(lambda: gather_rows(table, ids))
         plain_ms = cuda_ms(lambda: gather_rows_plain(table, ids))
-        gbs = 2 * got.numel() * got.element_size() / ms / 1e6
-        log(f"[gather] {label}: exact, kernel {ms:.4f} ms ({gbs:.1f} GB/s "
-            f"moved), plain {plain_ms:.4f} ms")
-        if timing is None:
-            timing = (ms, plain_ms)
-    return dict(max_abs_err=worst, ms=timing[0], plain_ms=timing[1])
+        flat = ids.reshape(-1)
+        lib_ms = cuda_ms(lambda: torch.index_select(table, 0, flat))
+        rows = torch.unique(ids).numel()        # the rows this run reads
+        b = bound(rows * table.shape[1] * table.element_size()
+                  + nbytes(ids, got), 0)
+        log(f"[gather] {label}: exact, kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, index_select {lib_ms:.4f} ms, bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+        if line is None:
+            line = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **b)
+        del table, ids, got, want
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=worst, **line)
 
 
 def _cand_inputs(gen, dev, dtype, B, C, n=FAN, m=FAN, d=D, Tn=T):
@@ -146,6 +193,26 @@ def _cand_inputs(gen, dev, dtype, B, C, n=FAN, m=FAN, d=D, Tn=T):
             r(d, d) * 0.3, r(B, d).to(dtype), r(B, C, d).to(dtype))
 
 
+def _cand_work(args, C, backward: bool):
+    """Compulsory bytes and f32 operations of the co-attention forward or
+    backward on these inputs: masked rows need not be read."""
+    Eu, Ei, mu, mi, Wr, eu, ei = args
+    B, Tn, n, d = Eu.shape
+    es = Eu.element_size()
+    vu, vi = mu.sum().item(), mi.sum().item()     # valid rows
+    out = 2 * B * C * Tn * d * es                 # cu, ci (or dcu, dci)
+    moved = ((vu + vi) * d * es + nbytes(mu, mi, Wr, eu, ei) + out)
+    if not backward:
+        flops = (2 * d * d * B * Tn * (1 + C) + d * vu + 4 * d * C * vu
+                 + 5 * d * vi)
+        return moved, flops
+    # reads dcu, dci; writes dEu, dEi (every row), deu, dei, dWr
+    moved += nbytes(Eu, Ei, eu, ei) + 4 * d * d
+    flops = (6 * d * d * B * Tn * (1 + C) + 11 * d * C * vu + d * vu
+             + 11 * d * vi)
+    return moved, flops
+
+
 def phase_coattn(dev, gen) -> dict:
     from score_tpu_torch.kernels.coattn_cand import (cross_coattn_cand,
                                                      cross_coattn_cand_plain)
@@ -153,7 +220,7 @@ def phase_coattn(dev, gen) -> dict:
               dict(B=4096, C=2), dict(B=37, C=101),       # ragged B
               dict(B=64, C=101, d=16)]                    # configs3 default d
     worst = 0.0
-    timing = None
+    line = None
     for kw in shapes:
         for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32,
                                                         F32_TOL)):
@@ -176,24 +243,152 @@ def phase_coattn(dev, gen) -> dict:
                 ms = cuda_ms(lambda: cross_coattn_cand(*args, target_aware=ta))
                 plain_ms = cuda_ms(lambda: cross_coattn_cand_plain(
                     *args, target_aware=ta), iters=5)
+                b = bound(*_cand_work(args, kw["C"], backward=False))
                 log(f"[coattn] {kw} {str(dtype)[6:]} target_aware={ta}: "
                     f"max_abs_err {err:.3e} (tol {tol}), kernel {ms:.4f} ms, "
-                    f"plain {plain_ms:.4f} ms")
+                    f"plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+                    f"({b['bound_by']})")
                 if kw == dict(B=16, C=4096) and dtype == torch.bfloat16:
-                    timing = (ms, plain_ms)
+                    line = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                                **b)
                 del args, got, want
     torch.cuda.empty_cache()
-    return dict(max_abs_err=worst, ms=timing[0], plain_ms=timing[1])
+    return dict(max_abs_err=worst, **line)
 
 
-# --- phase 3 ---------------------------------------------------------------
+# --- phase 2b: backward kernels --------------------------------------------
 
-def bench_config(dtype: str):
-    from score_tpu.config import configs3
+def phase_scatter(dev, gen) -> dict:
+    from score_tpu_torch.kernels.gather import (scatter_add_rows,
+                                                scatter_add_rows_plain)
+    # training's four table gradients: (table rows, ids shape)
+    cases = [("item [90560,32] ids [4096,9,10]", 90560, (BATCH, T, FAN)),
+             ("item [90560,32] ids [4096,1]", 90560, (BATCH, 1)),
+             ("user [50048,32] ids [4096,1,9,10]", 50048, (BATCH, 1, T, FAN)),
+             ("user [50048,32] ids [4096]", 50048, (BATCH,))]
+    worst = 0.0
+    line = None
+    for label, V, shape in cases:
+        ids = torch.randint(1, V, shape, generator=gen, device=dev,
+                            dtype=torch.int32)
+        pad = torch.rand(shape, generator=gen, device=dev) < 0.3
+        ids[pad] = 0        # masked neighbour slots: pad id, zero gradient
+        ints = torch.randint(-8, 9, shape + (D,), generator=gen,
+                             device=dev).float()
+        ints[pad] = 0.0
+        got = scatter_add_rows(ids, ints, V)
+        if not torch.equal(got, scatter_add_rows_plain(ids, ints, V)):
+            raise AssertionError(f"scatter_add {label}: integer sums "
+                                 f"differ from the plain version")
+        src = torch.randn(shape + (D,), generator=gen, device=dev)
+        src[pad] = 0.0
+        got = scatter_add_rows(ids, src, V)
+        want = scatter_add_rows_plain(ids, src, V)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        err = (got - want).abs().max().item()
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: scatter_add_rows(ids, src, V))
+        plain_ms = cuda_ms(lambda: scatter_add_rows_plain(ids, src, V))
+        zeros = torch.zeros(V, D, device=dev)
+        flat_ids, flat_src = ids.reshape(-1), src.reshape(-1, D)
+        lib_ms = cuda_ms(lambda: torch.index_add(zeros, 0, flat_ids,
+                                                 flat_src))
+        b = bound(nbytes(src, ids, got), (src != 0).sum().item())
+        log(f"[scatter] {label}: integer sums exact, random max_abs_err "
+            f"{err:.3e} (tol 1e-5 rel), kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, index_add {lib_ms:.4f} ms, bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+        if line is None:
+            line = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **b)
+        del ids, ints, src, got, want, zeros
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=worst, **line)
+
+
+def phase_coattn_bwd(dev, gen) -> dict:
+    from score_tpu_torch.kernels.coattn_cand import (
+        cross_coattn_cand_bwd, cross_coattn_cand_bwd_plain)
+    shapes = [dict(B=4096, C=2), dict(B=37, C=2),      # training; ragged B
+              dict(B=64, C=1), dict(B=64, C=2, d=16)]  # flat pairs; d=16
+    worst = 0.0
+    line = None
+    for kw in shapes:
+        for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32,
+                                                        F32_TOL)):
+            for ta in (True, False):
+                args = _cand_inputs(gen, dev, dtype, **kw)
+                B, C, d = kw["B"], kw["C"], kw.get("d", D)
+                grads = [torch.randn(B, C, T, d, generator=gen,
+                                     device=dev).to(dtype) for _ in range(2)]
+                got = cross_coattn_cand_bwd(*args, *grads, target_aware=ta)
+                want = cross_coattn_cand_bwd_plain(*args, *grads,
+                                                   target_aware=ta)
+                torch.cuda.synchronize()
+                err = 0.0
+                for name, g, w in zip(("dEu", "dEi", "deu", "dei", "dWr"),
+                                      got, want):
+                    if not torch.isfinite(g).all():
+                        raise AssertionError(f"coattn_bwd {kw}: {name} "
+                                             f"non-finite")
+                    scale = max(w.float().abs().max().item(), 1.0)
+                    torch.testing.assert_close(
+                        g.float(), w.float(), rtol=tol, atol=tol * scale,
+                        msg=f"coattn_bwd {kw} {dtype} ta={ta} {name}")
+                    err = max(err, (g.float() - w.float()).abs().max().item())
+                if not ((got[0][:, 0] == 0).all()
+                        and (got[1][:, :, T - 1] == 0).all()):
+                    raise AssertionError(f"coattn_bwd {kw}: masked rows' "
+                                         f"gradient != 0")
+                worst = max(worst, err)
+                ms = cuda_ms(lambda: cross_coattn_cand_bwd(
+                    *args, *grads, target_aware=ta))
+                plain_ms = cuda_ms(lambda: cross_coattn_cand_bwd_plain(
+                    *args, *grads, target_aware=ta), iters=5)
+                b = bound(*_cand_work(args, C, backward=True))
+                log(f"[coattn_bwd] {kw} {str(dtype)[6:]} target_aware={ta}: "
+                    f"max_abs_err {err:.3e} (tol {tol} x the largest value), "
+                    f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                    f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+                if (kw == dict(B=4096, C=2) and dtype == torch.bfloat16
+                        and ta):
+                    line = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                                **b)
+                del args, grads, got, want
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=worst, **line)
+
+
+# --- the dataset and the configuration ---------------------------------------
+
+def bench_dataset():
+    from score_tpu_torch.data import synth
+    from score_tpu_torch.data.prep_common import build_dataset
+    t0 = time.perf_counter()
+    user, item, ts = synth.synth_events(USERS, ITEMS, EVENTS, num_slots=T,
+                                        seed=SEED)
+    ds = build_dataset(user, item, ts, num_slots=T, user_fanout=FAN,
+                       item_fanout=FAN, num_eval_neg=100, min_user=3,
+                       min_item=3, seed=SEED, dataset_name="bench-taobao")
+    log(f"[data] {ds.num_users} users, {ds.num_items} items, "
+        f"{len(ds.train)} train targets, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return ds
+
+
+def bench_config(dtype: str, width: bool = True):
+    """configs3 as bench.py trains it; width=False keeps configs3's own
+    (smaller) widths."""
+    from score_tpu_torch.config import configs3
     cfg = configs3()
-    return cfg.replace(model=dataclasses.replace(
-        cfg.model, embed_dim=D, hidden_dim=64, mlp_dims=(128, 64),
-        compute_dtype=dtype))
+    model = dict(compute_dtype=dtype)
+    if width:
+        model.update(embed_dim=D, hidden_dim=64, mlp_dims=(128, 64))
+    return cfg.replace(
+        model=dataclasses.replace(cfg.model, **model),
+        data=dataclasses.replace(cfg.data, train_neg_mode="inbatch_iw"),
+        train=dataclasses.replace(cfg.train, batch_size=BATCH,
+                                  table_update_every=2, table_lr_boost=2.0))
 
 
 def random_weights(cfg, ds) -> dict:
@@ -212,21 +407,24 @@ def random_weights(cfg, ds) -> dict:
     return sd
 
 
-def phase_serving(card: str, device: str = "cuda") -> dict:
-    from score_tpu.data import synth
-    from score_tpu.data.prep_common import build_dataset
-    from score_tpu_torch.kernels.coattn_cand import cross_coattn_cand
-    from score_tpu_torch.kernels.gather import gather_rows
+def reset_counts() -> dict:
+    """Every kernel's launch counter, by kernel name, set to 0."""
+    from score_tpu_torch.kernels.coattn_cand import (cross_coattn_cand,
+                                                     cross_coattn_cand_bwd)
+    from score_tpu_torch.kernels.gather import gather_rows, scatter_add_rows
+    fns = dict(gather_rows=gather_rows, scatter_add_rows=scatter_add_rows,
+               cross_coattn_cand=cross_coattn_cand,
+               cross_coattn_cand_bwd=cross_coattn_cand_bwd)
+    for fn in fns.values():
+        fn.launches = 0
+    return fns
+
+
+# --- phase 3: serving ------------------------------------------------------
+
+def phase_serving(card: str, ds, device: str = "cuda") -> dict:
     from score_tpu_torch.serve import ScoringService
 
-    t0 = time.perf_counter()
-    user, item, ts = synth.synth_events(USERS, ITEMS, EVENTS, num_slots=T,
-                                        seed=SEED)
-    ds = build_dataset(user, item, ts, num_slots=T, user_fanout=FAN,
-                       item_fanout=FAN, num_eval_neg=100, min_user=3,
-                       min_item=3, seed=SEED, dataset_name="bench-taobao")
-    log(f"[serve] dataset: {ds.num_users} users, {ds.num_items} items, "
-        f"built in {time.perf_counter() - t0:.1f} s")
     cfg = bench_config("bfloat16")
     sd = random_weights(cfg, ds)
     svc = ScoringService(cfg, ds, sd, device=device)
@@ -237,18 +435,19 @@ def phase_serving(card: str, device: str = "cuda") -> dict:
     items16 = rng.integers(1, ds.num_items + 1, (ROWS, WIDE)).astype(np.int32)
 
     # the serving run whose launches the counters report
-    gather_rows.launches = 0
-    cross_coattn_cand.launches = 0
+    fns = reset_counts()
     s1 = svc.score(u, items100)
     sb = svc.score_batch(users16, items16)
     top_i, top_s = svc.topk(u, k=10)
     torch.cuda.synchronize()
-    launches = dict(gather_rows=gather_rows.launches,
-                    cross_coattn_cand=cross_coattn_cand.launches)
+    launches = {k: fn.launches for k, fn in fns.items()}
     log(f"[serve] launches in the serving run: {launches}")
-    for name, n in launches.items():
-        if n == 0:
+    for name in ("gather_rows", "cross_coattn_cand"):
+        if launches[name] == 0:
             raise AssertionError(f"{name} was never launched by serving")
+    for name in ("scatter_add_rows", "cross_coattn_cand_bwd"):
+        if launches[name] != 0:
+            raise AssertionError(f"serving launched the backward {name}")
     for name, arr, shape in (("score", s1, (100,)),
                              ("score_batch", sb, (ROWS, WIDE)),
                              ("topk", top_s, (10,))):
@@ -302,7 +501,165 @@ def phase_serving(card: str, device: str = "cuda") -> dict:
         f"[{card}]")
     log(f"[serve] topk over {ds.num_items} items: median "
         f"{statistics.median(tk):.4f} s of {tk} [{card}]")
+    del svc
+    torch.cuda.empty_cache()
     return launches
+
+
+# --- phase 4: training -----------------------------------------------------
+
+def _device_batches(ds, n: int, batch: int, device):
+    from score_tpu_torch.data.pipeline import TargetIterator
+    it = TargetIterator(ds.train, batch, seed=SEED)
+    return [{k: torch.from_numpy(v).to(device) for k, v in next(it).items()}
+            for _ in range(n)]
+
+
+def _tables(state) -> dict:
+    return {k: v.detach().clone()
+            for k, v in state.model.named_parameters() if "table" in k}
+
+
+def _profile(state, graph, batches, neg_iw, card, step_ms) -> None:
+    """Device time by kernel over the steady steps of a torch.profiler
+    window (the first two steps start the profiler and are not counted).
+    The profiler slows the host, so the idle share is given twice: within
+    the profiled window, and against the unprofiled step time `step_ms`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from score_tpu_torch.train import train_step
+    active = len(batches) - 2
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=1, active=active)) as prof:
+        for j, b in enumerate(batches):
+            if j == 2:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            train_step(state, graph, b, neg_iw=neg_iw, with_auc=False)
+            if j == len(batches) - 1:
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            prof.step()
+    rows = []
+    for ev in prof.key_averages():
+        if (ev.device_type == DeviceType.CUDA and ev.self_device_time_total
+                and not ev.key.startswith("ProfilerStep")):
+            rows.append((ev.self_device_time_total / 1e3, ev.count, ev.key))
+    busy = sum(r[0] for r in rows)
+    per_step = busy / active
+    log(f"[train] profile of {active} steps: "
+        f"{sum(r[1] for r in rows) / active:.0f} kernels and {per_step:.3f} "
+        f"ms of device time a step; idle share {1 - busy / wall:.3f} of the "
+        f"profiled window ({wall / active:.3f} ms a step), "
+        f"{1 - per_step / step_ms:.3f} of an unprofiled {step_ms:.3f} ms "
+        f"step [{card}]")
+    for ms, cnt, key in sorted(rows, reverse=True)[:15]:
+        log(f"[train]   {ms:8.3f} ms {100 * ms / busy:5.1f}% x{cnt:<5} "
+            f"{key[:100]}")
+
+
+def phase_training(card: str, ds, dev) -> dict:
+    from score_tpu_torch.graph import device_graph
+    from score_tpu_torch.params import init_params
+    from score_tpu_torch.train import (draw_shifts, init_state,
+                                       item_importance_weights, train_loop,
+                                       train_step)
+    cfg = bench_config("bfloat16")
+    sd = init_params(cfg, ds.num_users, ds.num_items,
+                     torch.Generator().manual_seed(SEED))
+    state = init_state(cfg, ds.num_users, ds.num_items, sd, device=dev)
+    graph = device_graph(ds.graph, dev)
+    neg_iw = torch.from_numpy(
+        item_importance_weights(ds.train, ds.num_items)).to(dev)
+    batches = _device_batches(ds, WARMUP_STEPS + TIMED_STEPS + 6, BATCH, dev)
+
+    # warm-up: tables change on steps 0 and 2 only
+    losses, aucs = [], []
+    for j in range(WARMUP_STEPS):
+        before = _tables(state)
+        state, m = train_step(state, graph, batches[j], neg_iw=neg_iw)
+        losses.append(m["loss"])
+        aucs.append(round(m["batch_auc"].item(), 5))
+        after = dict(state.model.named_parameters())
+        changed = any(not torch.equal(v, after[k]) for k, v in before.items())
+        if changed != (j % 2 == 0):
+            raise AssertionError(f"step {j}: tables changed={changed}")
+    log(f"[train] warm-up: tables changed on steps 0 and 2 only; batch_auc "
+        f"{aucs}")
+
+    # the training run whose launches the counters report
+    timed = batches[WARMUP_STEPS:WARMUP_STEPS + TIMED_STEPS]
+    shifts = [draw_shifts(state.generator, 1, BATCH) for _ in timed]
+    fns = reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    state, ms = train_loop(state, graph, timed, shifts, neg_iw)
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    ev_ms = start.elapsed_time(end) / TIMED_STEPS
+    launches = {k: fn.launches for k, fn in fns.items()}
+    log(f"[train] launches in {TIMED_STEPS} steps: {launches}")
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"{name} was never launched by training")
+    curve = [x.item() for x in losses] + ms["loss"].tolist()
+    if not np.isfinite(curve).all():
+        raise AssertionError(f"non-finite loss: {curve}")
+    if not np.mean(curve[-10:]) < curve[0]:
+        raise AssertionError(f"the loss did not fall: {curve}")
+    log(f"[train] loss curve ({len(curve)} steps): "
+        f"{[round(x, 5) for x in curve]}")
+    log(f"[train] batch_auc of the last step {ms['batch_auc'].item():.4f}")
+    log(f"[train] step {ev_ms:.3f} ms by CUDA events, {wall_ms:.3f} ms by "
+        f"wall clock; {BATCH / ev_ms * 1e3:.0f} examples/s (events), "
+        f"{BATCH / wall_ms * 1e3:.0f} examples/s (wall) [{card}]")
+    log(f"[train] peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    _profile(state, graph, batches[-6:], neg_iw, card, ev_ms)
+    del state, graph, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_training_vs_cpu(ds, devices=("cuda", "cpu")) -> None:
+    """3 steps of configs3 at its own widths, f32, batch 256, on the card
+    and on the CPU from the same weights, batches and shifts."""
+    from score_tpu_torch.graph import device_graph
+    from score_tpu_torch.params import init_params
+    from score_tpu_torch.train import (init_state, item_importance_weights,
+                                       train_step)
+    cfg = bench_config("float32", width=False)
+    sd = init_params(cfg, ds.num_users, ds.num_items,
+                     torch.Generator().manual_seed(SEED + 1))
+    neg_iw = torch.from_numpy(item_importance_weights(ds.train, ds.num_items))
+    batches = _device_batches(ds, 3, 256, "cpu")
+    shifts = [[17], [101], [3]]
+    out = {}
+    for device in devices:
+        state = init_state(cfg, ds.num_users, ds.num_items, sd, device=device)
+        graph = device_graph(ds.graph, device)
+        losses = []
+        for b, s in zip(batches, shifts):
+            state, m = train_step(state, graph, b, s, neg_iw.to(device))
+            losses.append(m["loss"].item())
+        out[device] = (losses, {k: v.detach().cpu() for k, v in
+                                state.model.named_parameters()})
+    card, cpu = (out[d] for d in devices)
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-5, atol=1e-6)
+    worst, where = 0.0, None
+    for k, want in cpu[1].items():
+        got = card[1][k]
+        torch.testing.assert_close(got, want, msg=k, **TRAIN_CPU_TOL)
+        err = (got - want).abs().max().item()
+        if err >= worst:
+            worst, where = err, k
+    log(f"[train] f32 card vs cpu, 3 steps of batch 256: losses "
+        f"{card[0]} vs {cpu[0]}; params max_abs_err "
+        f"{worst:.3e} ({where}; tol {TRAIN_CPU_TOL})")
 
 
 def main() -> int:
@@ -318,16 +675,30 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     gather = phase_gather(dev, gen)
     coattn = phase_coattn(dev, gen)
-    launches = phase_serving(card)
+    scatter = phase_scatter(dev, gen)
+    coattn_bwd = phase_coattn_bwd(dev, gen)
+    ds = bench_dataset()
+    phase_serving(card, ds)
+    launches = phase_training(card, ds, dev)
+    phase_training_vs_cpu(ds)
     kernels = [
         dict(name="gather_rows", route="cuda",
              source="score_tpu_torch/csrc/gather.cu",
              replaces="score_tpu/kernels/gather.py:67",
              launches=launches["gather_rows"], **gather),
+        dict(name="scatter_add_rows", route="cuda",
+             source="score_tpu_torch/csrc/scatter_add.cu",
+             replaces="score_tpu/kernels/gather.py:67 (its transpose, "
+                      "XLA's scatter-add)",
+             launches=launches["scatter_add_rows"], **scatter),
         dict(name="cross_coattn_cand", route="cuda",
              source="score_tpu_torch/csrc/coattn_cand.cu",
              replaces="score_tpu/kernels/coattn_cand.py:275",
              launches=launches["cross_coattn_cand"], **coattn),
+        dict(name="cross_coattn_cand_bwd", route="cuda",
+             source="score_tpu_torch/csrc/coattn_cand_bwd.cu",
+             replaces="score_tpu/kernels/coattn_cand.py:301",
+             launches=launches["cross_coattn_cand_bwd"], **coattn_bwd),
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

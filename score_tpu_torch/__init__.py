@@ -2,15 +2,23 @@
 Hopper (H100).
 
 The JAX package `score_tpu` is the reference; this package mirrors its
-module names. It imports torch and never JAX, and reuses the host-side
-layer of the reference (`score_tpu.config`, `score_tpu.data`), which has
-no JAX in it.
+module names. It imports torch and numpy, and never JAX nor anything of
+score_tpu: it keeps its own copy of the JAX-free host layer (config.py,
+data/, native/).
 
 Layout:
+    config.py  configuration dataclasses and presets (copy)
+    data/      dataset schema, synthetic events, prep, batch iterator (copy)
+    native/    the C++ adjacency construction prep uses (copy)
     kernels/   hand-written CUDA kernels (sources in csrc/), each with a
                plain PyTorch version for CPU tensors and a launch counter
     graph.py   device graph store and history gathers
     nn/        embed, co-attention, encoders, scorer, model (configs3)
-    params.py  flax <-> torch weight bridge and a flax-faithful init
+    params.py  flax <-> torch weight and Adam-state bridge, flax-faithful init
+    metrics.py auc
     serve.py   ScoringService: score, score_batch, topk
+    train.py   the configs3 train step and loop (in-batch IW negatives,
+               Adam with stride-K tables)
+
+Entry points run on the CUDA card unless the caller passes device="cpu".
 """

@@ -15,8 +15,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from score_tpu.data.schema import GraphStore
-
+from .data.schema import GraphStore
 from .kernels.gather import gather_rows
 
 

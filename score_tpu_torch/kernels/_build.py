@@ -20,6 +20,7 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Callable, Dict, Sequence, Tuple
 
@@ -91,9 +92,12 @@ def load(name: str, entry: str, argtypes: Sequence) -> Callable:
 
 
 def build_all() -> None:
-    """Build every source under csrc/ (a cached library is not rebuilt)."""
-    for src in sorted(CSRC_DIR.glob("*.cu")):
-        _build(src.stem)
+    """Build every source under csrc/, one nvcc per source, all at once (a
+    cached library is not rebuilt)."""
+    names = sorted(src.stem for src in CSRC_DIR.glob("*.cu"))
+    with ThreadPoolExecutor(max_workers=len(names) or 1) as pool:
+        for fut in [pool.submit(_build, name) for name in names]:
+            fut.result()
 
 
 def check(name: str, err: int) -> None:

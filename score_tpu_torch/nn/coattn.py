@@ -2,8 +2,8 @@
 
 Counterpart of score_tpu/nn/coattn.py for the sum-pool candidates path
 (configs3), plus `masked_softmax` and `slot_mean`. The block itself runs in
-`kernels.coattn_cand.cross_coattn_cand`: the CUDA kernel for CUDA tensors,
-its plain version for CPU tensors.
+`kernels.coattn_cand.cross_coattn_cand`, forward and backward: the CUDA
+kernels for CUDA tensors, their plain versions for CPU tensors.
 """
 
 from __future__ import annotations
@@ -27,6 +27,12 @@ def masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return (e / e.sum(dim=-1, keepdim=True).clamp_min(1e-20)).to(dt)
 
 
+def roll_candidates(x: torch.Tensor, shifts) -> torch.Tensor:
+    """In-batch negatives: x [B, 1, ...] -> [B, 1 + k, ...], candidate
+    c >= 1 of example b being example (b + shifts[c-1]) mod B's."""
+    return torch.cat([x] + [torch.roll(x, -s, 0) for s in shifts], dim=1)
+
+
 def slot_mean(E: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Masked mean over the neighbour axis. E: [..., n, d], mask: [..., n]."""
     m = mask[..., None].to(E.dtype)
@@ -40,7 +46,14 @@ class CrossCoAttention(nn.Module):
     Inputs: Eu [B,T,n,d] (user side, shared by the candidates),
     Ei [B,C,T,m,d], bool mu [B,T,n] and mi [B,C,T,m], eu [B,d],
     ei [B,C,d]. Returns cu, ci [B,C,T,d]. The f32 master weights are cast
-    to the activations' dtype where they are used."""
+    to the activations' dtype where they are used.
+
+    In-batch negatives: with `i_shifts` (k batch-axis shifts), Ei arrives
+    un-rolled as [B,1,T,m,d] and candidate c >= 1 is the item side of
+    example b + i_shifts[c-1]. The rolled item side is materialised, as
+    the reference does by default (score_tpu/nn/coattn.py PUSH_ROLLS =
+    False), and autograd of the roll sums each copy's gradient back onto
+    its example."""
 
     def __init__(self, dim: int, target_aware: bool = True):
         super().__init__()
@@ -50,8 +63,10 @@ class CrossCoAttention(nn.Module):
             self.wtu = nn.Parameter(torch.zeros(dim, dim))
             self.wti = nn.Parameter(torch.zeros(dim, dim))
 
-    def forward(self, Eu, Ei, mu, mi, eu, ei):
+    def forward(self, Eu, Ei, mu, mi, eu, ei, i_shifts=None):
         dt = Eu.dtype
+        if i_shifts is not None:
+            Ei = roll_candidates(Ei, i_shifts)
         if self.target_aware:
             # project each target once: einsum("de,bce->bcd", W, x) is x @ W^T
             ei = ei @ self.wtu.to(dt).T

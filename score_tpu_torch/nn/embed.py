@@ -3,7 +3,8 @@
 Counterpart of score_tpu/nn/embed.py. Row 0 of every table is the padding
 row; padding is handled by masks where the rows are used, never by zeroing
 the row. Row counts are rounded up to a multiple of 64 (the pad rows are
-never addressed by valid ids). Lookups go through the gather kernel.
+never addressed by valid ids). Lookups go through the gather kernel, whose
+backward (the scatter-add kernel) gives the f32 tables their gradients.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
-"""The SCoRe model (configs3: full cross-neighbour co-attention), forward.
+"""The SCoRe model (configs3: full cross-neighbour co-attention).
 
-Counterpart of score_tpu/nn/model.py:ScoreModel for serving. Submodule
+Counterpart of score_tpu/nn/model.py:ScoreModel, for serving and for
+training with in-batch negatives (`neg_shift`). Submodule
 and parameter names mirror the flax tree (tables, coattn, gru_u, gru_i,
 pool_u, pool_i, scorer), so `score_tpu_torch.params` maps one onto the
 other. Only configs3 with sum pooling is ported; other configurations
@@ -9,12 +10,13 @@ raise NotImplementedError.
 
 from __future__ import annotations
 
+from typing import Optional, Sequence
+
 import torch
 from torch import nn
 
-from score_tpu.config import ModelConfig
-
-from .coattn import CrossCoAttention
+from ..config import ModelConfig
+from .coattn import CrossCoAttention, roll_candidates
 from .embed import EmbeddingTables
 from .encoder import GRU, AttnPool
 from .scorer import Scorer
@@ -66,23 +68,40 @@ class ScoreModel(nn.Module):
                   i_cnt=batch["i_cnt"][:, None])
         return self.score_candidates(cb)[:, 0]
 
-    def score_candidates(self, batch: dict) -> torch.Tensor:
+    def score_candidates(self, batch: dict,
+                         neg_shift: Optional[Sequence[int]] = None
+                         ) -> torch.Tensor:
         """One user vs C candidate items (batch from
-        `graph.gather_candidate_batch`) -> logits [B, C] in f32."""
+        `graph.gather_candidate_batch`) -> logits [B, C] in f32.
+
+        Lookups gather from the f32 tables and cast after the gather, so
+        the tables' gradients arrive in f32. `neg_shift` (k in-batch
+        shifts, C == 1 only): candidate c >= 1 of example b is example
+        (b + neg_shift[c-1]) mod B's positive, its item side a batch roll
+        of the embedded tensors -> logits [B, 1 + k]."""
         cdt = self.compute_dtype
         sv = batch["slot_valid"]                                  # [B, T]
         eu = self.tables.user_emb(batch["user"]).to(cdt)          # [B, d]
         ei = self.tables.item_emb(batch["cand"]).to(cdt)          # [B, C, d]
+        i_cnt = batch["i_cnt"]                                    # [B, C, T]
+        if neg_shift is not None:
+            if ei.shape[1] != 1:
+                raise ValueError(f"neg_shift needs C == 1 candidates, got "
+                                 f"C={ei.shape[1]}")
+            ei = roll_candidates(ei, neg_shift)
+            i_cnt = roll_candidates(i_cnt, neg_shift)
         B, C = ei.shape[0], ei.shape[1]
         T = sv.shape[1]
         # user side: shared by the candidates
         Eu = self.tables.item_emb(batch["u_hist"]).to(cdt)        # [B,T,n,d]
         mu = _nbr_mask(batch["u_cnt"], Eu.shape[2], sv)           # [B,T,n]
-        Ei = self.tables.user_emb(batch["i_hist"]).to(cdt)        # [B,C,T,m,d]
-        mi = _nbr_mask(batch["i_cnt"], Ei.shape[3], sv[:, None])  # [B,C,T,m]
+        # [B,C,T,m,d]; [B,1,T,m,d] before the rolls with neg_shift
+        Ei = self.tables.user_emb(batch["i_hist"]).to(cdt)
+        mi = _nbr_mask(i_cnt, Ei.shape[3], sv[:, None])           # [B,C,T,m]
         eu_c = eu[:, None].expand(B, C, eu.shape[-1])
 
-        cu, ci = self.coattn(Eu, Ei, mu, mi, eu, ei)              # [B,C,T,d]
+        cu, ci = self.coattn(Eu, Ei, mu, mi, eu, ei,
+                             i_shifts=neg_shift)                  # [B,C,T,d]
         # cu depends on the candidate, so the user GRU runs on B*C sequences
         sv_c = sv[:, None].expand(B, C, T).reshape(B * C, T)
         hu_seq = self.gru_u(cu.reshape(B * C, T, -1), sv_c).reshape(

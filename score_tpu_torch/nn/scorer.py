@@ -1,13 +1,15 @@
-"""Interaction scorer: z = MLP([h_u; h_i; eu; ei; h_u*h_i; eu*ei]) -> logit.
+"""Interaction scorer z = MLP([h_u; h_i; eu; ei; h_u*h_i; eu*ei]) -> logit,
+and the pointwise loss.
 
-Counterpart of score_tpu/nn/scorer.py:Scorer for serving. Hidden layers
-run in the compute dtype and the logit in f32. Dropout is inert when
-serving, so the port has none.
+Counterpart of score_tpu/nn/scorer.py (Scorer, bce_loss). Hidden layers
+run in the compute dtype and the logit in f32. The port has no dropout
+(configs3's default is 0.0); the trainer refuses a config that asks for
+it.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -36,3 +38,16 @@ class Scorer(nn.Module):
         logit = F.linear(x.float(), self.out.weight.float(),
                          self.out.bias.float())
         return logit.squeeze(-1)
+
+
+def bce_loss(logits: torch.Tensor, labels: torch.Tensor,
+             weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean sigmoid binary cross-entropy; with `weights` (same shape as
+    logits) the weighted mean sum(l * w) / max(sum(w), 1), so elements of
+    weight 0 (in-batch negatives that collide with their positive) drop
+    out."""
+    ell = F.binary_cross_entropy_with_logits(logits, labels,
+                                             reduction="none")
+    if weights is None:
+        return ell.mean()
+    return (ell * weights).sum() / weights.sum().clamp_min(1.0)

@@ -1,5 +1,6 @@
-"""Weight bridge between the flax param tree and the port's state_dict, and
-a flax-faithful initialiser that needs no JAX.
+"""Weight bridge between the flax param tree and the port's state_dict (and
+an optax Adam state and the port's Adam), and a flax-faithful initialiser
+that needs no JAX.
 
 The state_dict keys mirror the flax paths with '.' for '/'. Flax `Dense`
 kernels ([in, out], leaf `kernel`) become torch `Linear` weights
@@ -15,8 +16,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from score_tpu.config import Config
-
+from .config import Config
 from .nn.embed import round_up
 from .nn.model import check_supported
 
@@ -52,6 +52,27 @@ def to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
             leaf, arr = "kernel", arr.T
         node[leaf] = arr.contiguous().numpy()
     return tree
+
+
+def opt_state_from_optax(opt_state) -> dict:
+    """The Adam part of an optax state (optax.adam, alone or in a chain
+    with masked scales) -> {count, mu, nu} with mu and nu as state_dicts,
+    for `train.init_state(..., opt_state=...)`. Found by its fields, so no
+    optax import is needed."""
+    def find(node):   # optax states are (named) tuples all the way down
+        if all(hasattr(node, f) for f in ("count", "mu", "nu")):
+            return node
+        if isinstance(node, (tuple, list)):
+            for child in node:
+                hit = find(child)
+                if hit is not None:
+                    return hit
+        return None
+    adam = find(opt_state)
+    if adam is None:
+        raise ValueError("no Adam state (count, mu, nu) in the optax state")
+    return dict(count=int(np.asarray(adam.count)), mu=from_flax(adam.mu),
+                nu=from_flax(adam.nu))
 
 
 def _lecun_normal(shape, fan_in: int, g: torch.Generator) -> torch.Tensor:

@@ -20,9 +20,8 @@ from typing import Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from score_tpu.config import Config
-from score_tpu.data.schema import Dataset
-
+from .config import Config
+from .data.schema import Dataset
 from .graph import DeviceGraph, device_graph, gather_candidate_batch
 from .nn.model import ScoreModel
 
@@ -51,12 +50,13 @@ def prepare_state(state_dict: Mapping[str, torch.Tensor],
 
 
 class ScoringService:
-    """Scorer over the model and graph, resident on one `device`."""
+    """Scorer over the model and graph, resident on one `device` (the CUDA
+    card unless the caller asks for another, as the CPU tests do)."""
 
     def __init__(self, cfg: Config, ds: Dataset,
                  state_dict: Mapping[str, torch.Tensor],
                  slot: Optional[int] = None, candidate_chunk: int = 4096,
-                 topk_grid_rows: int = 16, device="cpu"):
+                 topk_grid_rows: int = 16, device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
         self.candidate_chunk = int(candidate_chunk)

@@ -5,7 +5,10 @@ imports no JAX, so it also runs on a host that has none:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances: the gather is exact; the co-attention is f32 inside, so f32
+Tolerances: the gather is exact, and so is the scatter-add on
+integer-valued sources (sums of integers are exact in any order); on
+random sources it agrees to 1e-5 relative (f32 atomics add in no fixed
+order). The co-attention forward and backward are f32 inside, so f32
 outputs agree to 1e-4 (another summation order) and bf16 outputs to 2e-2
 (one bf16 rounding of values of order 1)."""
 
@@ -81,3 +84,78 @@ def test_cand_kernel_refuses_wide_rows(cuda):
                         torch.float32, cuda)
     with pytest.raises(ValueError):
         tcand.cross_coattn_cand(*args)
+
+
+@pytest.mark.parametrize("V,W,shape", [(1000, 32, (64, 9, 10)),
+                                       (300, 8, (4096,)),
+                                       (50, 6, (7, 11)),      # float2 rows
+                                       (64, 9, (513,))])      # float rows
+def test_scatter_add_kernel(cuda, V, W, shape):
+    """Duplicated ids (40% of them the pad row 0) and zero rows."""
+    rng = np.random.default_rng(V + W)
+    ids = rng.integers(0, V, shape).astype(np.int32)
+    ids[rng.random(shape) < 0.4] = 0
+    ints = rng.integers(-8, 9, shape + (W,)).astype(np.float32)
+    ints[ids == 0] = 0.0                       # masked slots: zero rows
+    noise = rng.normal(size=shape + (W,)).astype(np.float32)
+    noise[ids == 0] = 0.0
+    ids_t = torch.from_numpy(ids)
+    for src, exact in ((ints, True), (noise, False)):
+        src_t = torch.from_numpy(src)
+        before = tgather.scatter_add_rows.launches
+        got = tgather.scatter_add_rows(ids_t.to(cuda), src_t.to(cuda), V)
+        torch.cuda.synchronize()
+        assert tgather.scatter_add_rows.launches == before + 1
+        want = tgather.scatter_add_rows_plain(ids_t, src_t, V)
+        if exact:
+            assert torch.equal(got.cpu(), want)
+        else:
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-5,
+                                       atol=1e-5)
+
+
+def test_gather_backward_launches_scatter_add(cuda):
+    rng = np.random.default_rng(1)
+    table = torch.from_numpy(rng.normal(size=(100, 32)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, 100, (8, 5)).astype(np.int32))
+    dout = torch.from_numpy(rng.integers(-4, 5, (8, 5, 32)).astype(
+        np.float32))
+    t = table.to(cuda).requires_grad_(True)
+    before = (tgather.gather_rows.launches, tgather.scatter_add_rows.launches)
+    (g,) = torch.autograd.grad((tgather.gather_rows(t, ids.to(cuda))
+                                * dout.to(cuda)).sum(), [t])
+    torch.cuda.synchronize()
+    assert (tgather.gather_rows.launches,
+            tgather.scatter_add_rows.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    assert torch.equal(g.cpu(), tgather.scatter_add_rows_plain(ids, dout,
+                                                               100))
+
+
+@pytest.mark.parametrize("B,C,T,n,m,d,ta",
+                         [(4, 2, 3, 5, 6, 8, True),
+                          (4, 2, 3, 5, 6, 8, False),
+                          (37, 2, 9, 10, 10, 32, True),     # ragged B
+                          (5, 1, 4, 6, 5, 16, True),
+                          (3, 12, 2, 4, 3, 16, False),
+                          (2, 3, 2, 32, 17, 32, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cand_bwd_kernel(cuda, B, C, T, n, m, d, ta, dtype):
+    rng = np.random.default_rng(B * C)
+    args = _cand_inputs(rng, B, C, T, n, m, d, dtype, cuda)
+    grads = [torch.from_numpy(rng.normal(size=(B, C, T, d)).astype(
+        np.float32)).to(dtype).to(cuda) for _ in range(2)]
+    before = tcand.cross_coattn_cand_bwd.launches
+    got = tcand.cross_coattn_cand_bwd(*args, *grads, target_aware=ta)
+    torch.cuda.synchronize()
+    assert tcand.cross_coattn_cand_bwd.launches == before + 1
+    want = tcand.cross_coattn_cand_bwd_plain(*args, *grads, target_aware=ta)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, g, w in zip(("dEu", "dEi", "deu", "dei", "dWr"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        scale = max(w.float().abs().max().item(), 1.0)
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol,
+                                   atol=tol * scale, msg=name)
+    assert (got[0][0, 0] == 0).all() and (got[1][0, :, T - 1] == 0).all()
+    again = tcand.cross_coattn_cand_bwd(*args, *grads, target_aware=ta)
+    assert torch.equal(again[4], got[4])     # dWr is the same run to run

@@ -1,17 +1,34 @@
-"""The port must run where JAX is not installed, as on the GPU host: in a
-fresh interpreter that refuses to import jax, flax, optax or orbax, import
-score_tpu_torch.serve and score one request on the CPU."""
+"""The port must run where JAX is not installed, as on the GPU host, and
+without the JAX package: in a fresh interpreter that refuses to import
+jax, flax, optax, orbax or anything of score_tpu, build a dataset with the
+port's own host layer, score one request and take two train steps on the
+CPU. And the port's copies of that host layer (config presets, the
+synthetic generator, dataset prep, the batch iterator) give what the JAX
+package's give."""
 
+import dataclasses
 import os
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
+import pytest
+
+from score_tpu import config as jconfig
+from score_tpu.data import pipeline as jpipeline
+from score_tpu.data import prep_common as jprep
+from score_tpu.data import synth as jsynth
+from score_tpu_torch import config as tconfig
+from score_tpu_torch.data import pipeline as tpipeline
+from score_tpu_torch.data import prep_common as tprep
+from score_tpu_torch.data import synth as tsynth
+
 SCRIPT = r"""
 import importlib.abc
 import sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "score_tpu")
 
 
 class Refuse(importlib.abc.MetaPathFinder):
@@ -27,31 +44,97 @@ import numpy as np
 import torch
 
 torch.set_num_threads(2)
-from score_tpu.config import configs3
-from score_tpu.data import synth
-from score_tpu.data.prep_common import build_dataset
+import dataclasses
+
+from score_tpu_torch.config import configs3
+from score_tpu_torch.data import synth
+from score_tpu_torch.data.pipeline import TargetIterator
+from score_tpu_torch.data.prep_common import build_dataset
+from score_tpu_torch.graph import device_graph
 from score_tpu_torch.params import init_params
 from score_tpu_torch.serve import ScoringService
+from score_tpu_torch.train import (init_state, item_importance_weights,
+                                   train_step)
 
 user, item, ts = synth.synth_events(100, 200, 3000, num_slots=4, seed=0)
 ds = build_dataset(user, item, ts, num_slots=4, user_fanout=3,
                    item_fanout=3, num_eval_neg=5, min_user=1, min_item=1,
                    seed=0)
 cfg = configs3()
+cfg = cfg.replace(data=dataclasses.replace(cfg.data,
+                                           train_neg_mode="inbatch_iw"),
+                  train=dataclasses.replace(cfg.train, table_update_every=2,
+                                            table_lr_boost=2.0))
 sd = init_params(cfg, ds.num_users, ds.num_items,
                  torch.Generator().manual_seed(0))
-scores = ScoringService(cfg, ds, sd).score(1, [1, 2, 3])
+scores = ScoringService(cfg, ds, sd, device="cpu").score(1, [1, 2, 3])
 assert scores.shape == (3,) and np.isfinite(scores).all(), scores
+
+state = init_state(cfg, ds.num_users, ds.num_items, sd, device="cpu")
+graph = device_graph(ds.graph, "cpu")
+neg_iw = torch.from_numpy(item_importance_weights(ds.train, ds.num_items))
+it = TargetIterator(ds.train, 32, seed=0)
+losses = []
+for _ in range(2):
+    state, m = train_step(state, graph, next(it), neg_iw=neg_iw)
+    losses.append(m["loss"].item())
+assert state.step == 2 and np.isfinite(losses).all(), losses
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not loaded, loaded
-print("SERVED", scores.tolist())
+print("SERVED", scores.tolist(), "TRAINED", losses)
 """
 
 
-def test_port_serves_without_jax():
+def test_port_serves_and_trains_without_jax():
     root = Path(__file__).resolve().parents[1]
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=root, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.startswith("SERVED"), proc.stdout
+    assert "TRAINED" in proc.stdout, proc.stdout
+
+
+@pytest.mark.parametrize("name", ["configs0", "configs1", "configs2",
+                                  "configs3", "configs4"])
+def test_config_copies_equal(name):
+    want = getattr(jconfig, name)()
+    got = getattr(tconfig, name)()
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    over = {"train.batch_size": "512", "model.mlp_dims": "8,4",
+            "data.train_neg_mode": "inbatch_iw"}
+    assert dataclasses.asdict(tconfig.apply_overrides(got, over)) == \
+        dataclasses.asdict(jconfig.apply_overrides(want, over))
+    assert sorted(tconfig.PRESETS) == sorted(jconfig.PRESETS)
+
+
+@pytest.mark.parametrize("mode", ["latent", "crossattr"])
+def test_data_copies_equal(mode):
+    """synth_events, build_dataset (with its native adjacency code, as
+    both packages default to) and TargetIterator, for one seed."""
+    got = tsynth.synth_events(150, 300, 6000, num_slots=5, seed=2, mode=mode)
+    want = jsynth.synth_events(150, 300, 6000, num_slots=5, seed=2,
+                               mode=mode)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    kw = dict(num_slots=5, user_fanout=4, item_fanout=3, num_eval_neg=7,
+              min_user=2, min_item=2, seed=2)
+    tds, jds = tprep.build_dataset(*got, **kw), jprep.build_dataset(*want,
+                                                                    **kw)
+    for f in dataclasses.fields(jds.graph):
+        np.testing.assert_array_equal(getattr(tds.graph, f.name),
+                                      getattr(jds.graph, f.name),
+                                      err_msg=f.name)
+    for split in ("train", "val", "test"):
+        for f in ("user", "item", "slot", "neg"):
+            a, b = getattr(getattr(tds, split), f), getattr(
+                getattr(jds, split), f)
+            assert (a is None) == (b is None), (split, f)
+            if a is not None:
+                np.testing.assert_array_equal(a, b, err_msg=f"{split}.{f}")
+    ti, ji = (tpipeline.TargetIterator(tds.train, 16, seed=1),
+              jpipeline.TargetIterator(jds.train, 16, seed=1))
+    for _ in range(tds.train.user.size // 16 + 2):   # across an epoch
+        a, b = next(ti), next(ji)
+        for k in ("user", "item", "slot"):
+            np.testing.assert_array_equal(a[k], b[k])
