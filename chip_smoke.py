@@ -11,39 +11,59 @@ fails or no CUDA device is present.
    build of every kernel under score_tpu_torch/csrc (one nvcc per source,
    all at once, sm_90a), with ptxas's register and spill counts.
 2. Forward kernels against their plain PyTorch versions on the card, at
-   the shapes serving and training give them. The gather must be exact;
-   the co-attention agrees to 1e-4 in f32 and 2e-2 in bf16 (f32 inside,
-   other summation order, one bf16 rounding of the output).
+   the shapes serving, eval and training give them: the gather, the
+   candidates-form co-attention (sum pool) and the per-pair co-attention
+   ([coattn_pair], max and mean pools; at the serving and training
+   shapes also the sum pool, held against the candidates kernel on the
+   same inputs). The gather must be exact; the co-attention agrees to
+   1e-4 in f32 and 2e-2 in bf16 (f32 inside, other summation order, one
+   bf16 rounding of the output).
 2b. Backward kernels against their plain versions. The scatter-add is
    exact on integer-valued sources and within 1e-5 relative of
    `index_add_` on random ones (f32 atomics add in no fixed order); the
-   co-attention backward's five gradients agree to 1e-4 in f32 and 2e-2 in
-   bf16, relative to each gradient's largest value.
+   co-attention backwards' ([coattn_bwd] sum; [coattn_pair_bwd] sum and
+   mean) five gradients agree to 1e-4 in f32 and 2e-2 in bf16, relative
+   to each gradient's largest value.
    For every kernel: CUDA-event times of kernel, plain version and, where
    one PyTorch call computes the same function, that call; and the bound,
    the least time the card could take for the work (bytes over 3.35 TB/s
    or f32 operations over 67 TFLOP/s, whichever is larger).
-3. Serving: ScoringService on the configs3 model at the benchmark's width
-   (bench.py: d=32, hidden 64, MLP 128/64, T=9, n=m=10, bf16 compute) over
-   a synthetic 50k-user / 100k-item / 2M-event dataset, with random weights
-   from a seed. score, score_batch and a full-catalogue topk run through
-   the forward kernels (launch counters checked), and a 4 x 256 request
+3. Serving, for each co-attention pool (sum, max, mean): ScoringService on
+   the configs3 model at the benchmark's width (bench.py: d=32, hidden 64,
+   MLP 128/64, T=9, n=m=10, bf16 compute) over a synthetic 50k-user /
+   100k-item / 2M-event dataset, with random weights from a seed. score,
+   score_batch and a full-catalogue topk run through the forward kernels
+   (launch counters checked: the candidates kernel for sum, the per-pair
+   kernel for max and mean, never the other), and a 4 x 256 request
    matches the same service on the CPU, in f32 and in bf16. p50 latency,
    score_batch throughput and topk time.
 4. Training: the configs3 train step as bench.py configures it (batch
    4096, bf16 over f32 master weights, one importance-weighted in-batch
    negative, tables every 2nd step at 2x lr, Adam 1e-3, L2 1e-5) on the
    same dataset from flax-faithful init (seed 0). 3 warm-up steps (tables
-   must change on steps 0 and 2 only), then 50 timed steps through
-   train_loop with all four kernels' launches counted; the loss must fall.
-   A torch.profiler window gives device time by op. Then 3 steps of a
-   small f32 model (configs3's default widths, batch 256) on the card and
-   on the CPU from the same weights, batches and shifts must agree.
+   must change on steps 0 and 2 only), then timed steps through
+   train_loop with the kernels' launches counted: 50 steps with the sum
+   pool (gather, scatter-add, candidates forward and backward) and with
+   the mean pool (gather, scatter-add, per-pair forward and backward), in
+   which the loss must fall, each with a torch.profiler window of device
+   time by op; 10 steps with the max pool (per-pair forward; the backward
+   is the recompute VJP), whose loss must stay finite. Then, per pool, 3
+   steps of a small f32 model (configs3's default widths, batch 256) on
+   the card and on the CPU from the same weights, batches and shifts must
+   agree.
+5. Eval: the streaming `evaluate` of the max-pool model at the bench
+   width, bf16, batch 256, over 8192 validation targets x (1 + 100)
+   candidates: targets/s and the metrics; and in f32 on 512 targets, the
+   card's metrics against the CPU's (ranking metrics 1e-4, AUC 1e-3, as
+   tests/test_torch_eval.py holds the port to the JAX package).
 
 The line before the last lists each kernel with its launches in the
-training run, its largest error against the plain version, and its, the
-plain version's and the library call's time beside its bound; the last
-line is {"ok": true, "device": {...}}.
+training run of its path (the sum-pool run for the gather, scatter-add and
+candidates kernels, the mean-pool run for the per-pair kernels), its
+largest error against the plain version, and its, the plain version's and
+the library call's time beside its bound; the last line is
+{"ok": true, "device": {...}}. Every timing line carries the card's name
+and power limit.
 """
 
 from __future__ import annotations
@@ -63,12 +83,14 @@ T, FAN, D = 9, 10, 32                 # bench.py's slots, fan-out, width
 USERS, ITEMS, EVENTS = 50_000, 100_000, 2_000_000
 ROWS, WIDE = 16, 4096                 # score_batch: 16 users x 4096 items
 BATCH = 4096                          # bench.py's training batch
-WARMUP_STEPS, TIMED_STEPS = 3, 50
+WARMUP_STEPS, TIMED_STEPS, MAX_POOL_STEPS = 3, 50, 10
+EVAL_TARGETS, EVAL_CPU_TARGETS, EVAL_BATCH = 8192, 512, 256
 F32_TOL = 1e-4
 BF16_TOL = 2e-2
 CPU_TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
            "bfloat16": dict(rtol=2e-2, atol=2e-3)}
 TRAIN_CPU_TOL = dict(rtol=1e-4, atol=1e-5)
+EVAL_TOL, EVAL_AUC_TOL = 1e-4, 1e-3
 # the card's published peaks (H100 SXM): HBM bytes/s, f32 outside the
 # tensor cores (the kernels here do f32 FMAs on the CUDA cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -137,7 +159,7 @@ def phase_device(card: str) -> None:
 
 # --- phase 2: forward kernels ----------------------------------------------
 
-def phase_gather(dev, gen) -> dict:
+def phase_gather(card: str, dev, gen) -> dict:
     from score_tpu_torch.kernels.gather import gather_rows, gather_rows_plain
     cases = [  # (label, table, ids); shapes as serving and training give
         ("bf16 [100032,32] ids [16,4096,9,10]",
@@ -174,7 +196,7 @@ def phase_gather(dev, gen) -> dict:
                   + nbytes(ids, got), 0)
         log(f"[gather] {label}: exact, kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, index_select {lib_ms:.4f} ms, bound "
-            f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]")
         if line is None:
             line = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **b)
         del table, ids, got, want
@@ -213,7 +235,7 @@ def _cand_work(args, C, backward: bool):
     return moved, flops
 
 
-def phase_coattn(dev, gen) -> dict:
+def phase_coattn(card: str, dev, gen) -> dict:
     from score_tpu_torch.kernels.coattn_cand import (cross_coattn_cand,
                                                      cross_coattn_cand_plain)
     shapes = [dict(B=1, C=4096), dict(B=16, C=4096), dict(B=512, C=101),
@@ -247,7 +269,7 @@ def phase_coattn(dev, gen) -> dict:
                 log(f"[coattn] {kw} {str(dtype)[6:]} target_aware={ta}: "
                     f"max_abs_err {err:.3e} (tol {tol}), kernel {ms:.4f} ms, "
                     f"plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
-                    f"({b['bound_by']})")
+                    f"({b['bound_by']}) [{card}]")
                 if kw == dict(B=16, C=4096) and dtype == torch.bfloat16:
                     line = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                                 **b)
@@ -256,9 +278,113 @@ def phase_coattn(dev, gen) -> dict:
     return dict(max_abs_err=worst, **line)
 
 
+def _pair_work(args, pool: str):
+    """Compulsory bytes and f32 operations of the per-pair forward on these
+    inputs: masked rows need not be read; EuW = Eu Wr once per valid user
+    row; the max pool's relation entries only for valid (j, k) pairs."""
+    Eu, Ei, mu, mi, Wr, eu, ei = args
+    B, Tn, n, d = Eu.shape
+    C = Ei.shape[1]
+    es = Eu.element_size()
+    vu, vi = mu.sum().item(), mi.sum().item()
+    moved = ((vu + vi) * d * es + nbytes(mu, mi, Wr, eu, ei)
+             + 2 * B * C * Tn * d * es)
+    flops = 2 * d * d * vu
+    if pool == "max":
+        pairs = (mu.sum(-1)[:, None].double()
+                 * mi.sum(-1).double()).sum().item()
+        # relation entries; per row the target term and the weighted sum
+        flops += 2 * d * pairs + 4 * d * (C * vu + vi)
+    else:
+        # per user row: score with the target folded in, weighted sum; per
+        # item row: the masked sum, score, weighted sum
+        flops += 6 * d * C * vu + 5 * d * vi
+    return moved, flops
+
+
+def phase_coattn_pair(card: str, dev, gen) -> dict:
+    """The per-pair forward against its plain version, max and mean pools;
+    at the serving and training shapes also the sum pool, which must give
+    the candidates kernel's result on the same inputs (the model routes the
+    sum pool to the candidates kernel, so this holds the two kernels to
+    one function)."""
+    from score_tpu_torch.kernels.coattn import (cross_coattn_pair,
+                                                cross_coattn_pair_plain)
+    from score_tpu_torch.kernels.coattn_cand import cross_coattn_cand
+    cases = [  # (label, shape, dtypes): serving, eval, training, ragged
+        ("serving", dict(B=16, C=4096), (torch.bfloat16,)),
+        ("eval", dict(B=256, C=101), (torch.bfloat16,)),
+        ("training", dict(B=4096, C=2), (torch.float32, torch.bfloat16)),
+        ("ragged", dict(B=37, C=101), (torch.float32,)),
+        ("configs3 d", dict(B=64, C=101, d=16), (torch.float32,))]
+    worst = 0.0
+    line = None
+    for label, kw, dtypes in cases:
+        pools = ("max", "mean") + (("sum",) if label in ("serving",
+                                                       "training") else ())
+        for pool in pools:
+            for dtype in dtypes:
+                tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+                for ta in ((True, False) if label == "ragged" else (True,)):
+                    args = _cand_inputs(gen, dev, dtype, **kw)
+                    got = cross_coattn_pair(*args, pool=pool,
+                                            target_aware=ta)
+                    want = cross_coattn_pair_plain(*args, pool=pool,
+                                                   target_aware=ta)
+                    torch.cuda.synchronize()
+                    err = 0.0
+                    for g, w in zip(got, want):
+                        if not torch.isfinite(g).all():
+                            raise AssertionError(
+                                f"coattn_pair {kw} {pool}: non-finite")
+                        torch.testing.assert_close(g.float(), w.float(),
+                                                   rtol=tol, atol=tol)
+                        err = max(err,
+                                  (g.float() - w.float()).abs().max().item())
+                    if not ((got[0][:, :, 0] == 0).all()
+                            and (got[1][:, :, T - 1] == 0).all()):
+                        raise AssertionError(
+                            f"coattn_pair {kw} {pool}: masked slot != 0")
+                    worst = max(worst, err)
+                    if pool == "sum":
+                        cand = cross_coattn_cand(*args, target_aware=ta)
+                        torch.cuda.synchronize()
+                        cerr = 0.0
+                        for g, w in zip(got, cand):
+                            torch.testing.assert_close(g.float(), w.float(),
+                                                       rtol=tol, atol=tol)
+                            cerr = max(cerr, (g.float() - w.float()).abs()
+                                       .max().item())
+                        cand_ms = cuda_ms(lambda: cross_coattn_cand(
+                            *args, target_aware=ta))
+                        log(f"[coattn_pair] {label} {kw} sum "
+                            f"{str(dtype)[6:]}: per-pair kernel vs "
+                            f"candidates kernel max_abs_err {cerr:.3e} (tol "
+                            f"{tol}); candidates kernel {cand_ms:.4f} ms "
+                            f"[{card}]")
+                        del cand
+                    ms = cuda_ms(lambda: cross_coattn_pair(
+                        *args, pool=pool, target_aware=ta))
+                    plain_ms = cuda_ms(lambda: cross_coattn_pair_plain(
+                        *args, pool=pool, target_aware=ta), iters=5)
+                    b = bound(*_pair_work(args, pool))
+                    log(f"[coattn_pair] {label} {kw} {pool} "
+                        f"{str(dtype)[6:]} target_aware={ta}: max_abs_err "
+                        f"{err:.3e} (tol {tol}), kernel {ms:.4f} ms, plain "
+                        f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+                        f"({b['bound_by']}) [{card}]")
+                    if (label == "serving" and pool == "max"
+                            and dtype == torch.bfloat16):
+                        line = dict(ms=ms, plain_ms=plain_ms,
+                                    library_ms=None, **b)
+                    del args, got, want
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=worst, **line)
+
+
 # --- phase 2b: backward kernels --------------------------------------------
 
-def phase_scatter(dev, gen) -> dict:
+def phase_scatter(card: str, dev, gen) -> dict:
     from score_tpu_torch.kernels.gather import (scatter_add_rows,
                                                 scatter_add_rows_plain)
     # training's four table gradients: (table rows, ids shape)
@@ -298,7 +424,7 @@ def phase_scatter(dev, gen) -> dict:
         log(f"[scatter] {label}: integer sums exact, random max_abs_err "
             f"{err:.3e} (tol 1e-5 rel), kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, index_add {lib_ms:.4f} ms, bound "
-            f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]")
         if line is None:
             line = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **b)
         del ids, ints, src, got, want, zeros
@@ -306,7 +432,7 @@ def phase_scatter(dev, gen) -> dict:
     return dict(max_abs_err=worst, **line)
 
 
-def phase_coattn_bwd(dev, gen) -> dict:
+def phase_coattn_bwd(card: str, dev, gen) -> dict:
     from score_tpu_torch.kernels.coattn_cand import (
         cross_coattn_cand_bwd, cross_coattn_cand_bwd_plain)
     shapes = [dict(B=4096, C=2), dict(B=37, C=2),      # training; ragged B
@@ -349,9 +475,65 @@ def phase_coattn_bwd(dev, gen) -> dict:
                 log(f"[coattn_bwd] {kw} {str(dtype)[6:]} target_aware={ta}: "
                     f"max_abs_err {err:.3e} (tol {tol} x the largest value), "
                     f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                    f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+                    f"{b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]")
                 if (kw == dict(B=4096, C=2) and dtype == torch.bfloat16
                         and ta):
+                    line = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                                **b)
+                del args, grads, got, want
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=worst, **line)
+
+
+def phase_coattn_pair_bwd(card: str, dev, gen) -> dict:
+    from score_tpu_torch.kernels.coattn import (cross_coattn_pair_bwd,
+                                                cross_coattn_pair_bwd_plain)
+    shapes = [dict(B=4096, C=2), dict(B=37, C=2),    # training; ragged B
+              dict(B=64, C=2, d=16)]                 # configs3's own d
+    worst = 0.0
+    line = None
+    for kw in shapes:
+        for pool in ("mean", "sum"):
+            for dtype, tol in ((torch.bfloat16, BF16_TOL),
+                               (torch.float32, F32_TOL)):
+                ta = kw["B"] != 37 or dtype == torch.bfloat16
+                args = _cand_inputs(gen, dev, dtype, **kw)
+                B, C, d = kw["B"], kw["C"], kw.get("d", D)
+                grads = [torch.randn(B, C, T, d, generator=gen,
+                                     device=dev).to(dtype) for _ in range(2)]
+                got = cross_coattn_pair_bwd(*args, *grads, pool=pool,
+                                            target_aware=ta)
+                want = cross_coattn_pair_bwd_plain(*args, *grads, pool=pool,
+                                                   target_aware=ta)
+                torch.cuda.synchronize()
+                err = 0.0
+                for name, g, w in zip(("dEu", "dEi", "deu", "dei", "dWr"),
+                                      got, want):
+                    if not torch.isfinite(g).all():
+                        raise AssertionError(f"coattn_pair_bwd {kw}: {name} "
+                                             f"non-finite")
+                    scale = max(w.float().abs().max().item(), 1.0)
+                    torch.testing.assert_close(
+                        g.float(), w.float(), rtol=tol, atol=tol * scale,
+                        msg=f"coattn_pair_bwd {kw} {pool} {dtype} {name}")
+                    err = max(err, (g.float() - w.float()).abs().max().item())
+                if not ((got[0][:, 0] == 0).all()
+                        and (got[1][:, :, T - 1] == 0).all()):
+                    raise AssertionError(f"coattn_pair_bwd {kw}: masked "
+                                         f"rows' gradient != 0")
+                worst = max(worst, err)
+                ms = cuda_ms(lambda: cross_coattn_pair_bwd(
+                    *args, *grads, pool=pool, target_aware=ta))
+                plain_ms = cuda_ms(lambda: cross_coattn_pair_bwd_plain(
+                    *args, *grads, pool=pool, target_aware=ta), iters=5)
+                b = bound(*_cand_work(args, C, backward=True))
+                log(f"[coattn_pair_bwd] {kw} {pool} {str(dtype)[6:]} "
+                    f"target_aware={ta}: max_abs_err {err:.3e} (tol {tol} x "
+                    f"the largest value), kernel {ms:.4f} ms, plain "
+                    f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+                    f"({b['bound_by']}) [{card}]")
+                if (kw == dict(B=4096, C=2) and dtype == torch.bfloat16
+                        and pool == "mean"):
                     line = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                                 **b)
                 del args, grads, got, want
@@ -376,12 +558,12 @@ def bench_dataset():
     return ds
 
 
-def bench_config(dtype: str, width: bool = True):
-    """configs3 as bench.py trains it; width=False keeps configs3's own
-    (smaller) widths."""
+def bench_config(dtype: str, width: bool = True, pool: str = "sum"):
+    """configs3 as bench.py trains it, with co-attention pool `pool`;
+    width=False keeps configs3's own (smaller) widths."""
     from score_tpu_torch.config import configs3
     cfg = configs3()
-    model = dict(compute_dtype=dtype)
+    model = dict(compute_dtype=dtype, coattn_pool=pool)
     if width:
         model.update(embed_dim=D, hidden_dim=64, mlp_dims=(128, 64))
     return cfg.replace(
@@ -409,23 +591,48 @@ def random_weights(cfg, ds) -> dict:
 
 def reset_counts() -> dict:
     """Every kernel's launch counter, by kernel name, set to 0."""
+    from score_tpu_torch.kernels.coattn import (cross_coattn_pair,
+                                                cross_coattn_pair_bwd)
     from score_tpu_torch.kernels.coattn_cand import (cross_coattn_cand,
                                                      cross_coattn_cand_bwd)
     from score_tpu_torch.kernels.gather import gather_rows, scatter_add_rows
     fns = dict(gather_rows=gather_rows, scatter_add_rows=scatter_add_rows,
                cross_coattn_cand=cross_coattn_cand,
-               cross_coattn_cand_bwd=cross_coattn_cand_bwd)
+               cross_coattn_cand_bwd=cross_coattn_cand_bwd,
+               cross_coattn_pair=cross_coattn_pair,
+               cross_coattn_pair_bwd=cross_coattn_pair_bwd)
     for fn in fns.values():
         fn.launches = 0
     return fns
 
 
+def check_launches(what: str, launches: dict, want: set) -> None:
+    """The kernels in `want` launched at least once, every other not."""
+    for name, n in launches.items():
+        if (n > 0) != (name in want):
+            raise AssertionError(f"{what}: {name} launched {n} times; "
+                                 f"expected {'some' if name in want else 0}")
+
+
+# the kernels each path launches: serving, and training by pool
+SERVE_KERNELS = {"sum": {"gather_rows", "cross_coattn_cand"},
+                 "mean": {"gather_rows", "cross_coattn_pair"},
+                 "max": {"gather_rows", "cross_coattn_pair"}}
+TRAIN_KERNELS = {"sum": {"gather_rows", "scatter_add_rows",
+                         "cross_coattn_cand", "cross_coattn_cand_bwd"},
+                 "mean": {"gather_rows", "scatter_add_rows",
+                          "cross_coattn_pair", "cross_coattn_pair_bwd"},
+                 "max": {"gather_rows", "scatter_add_rows",
+                         "cross_coattn_pair"}}
+
+
 # --- phase 3: serving ------------------------------------------------------
 
-def phase_serving(card: str, ds, device: str = "cuda") -> dict:
+def phase_serving(card: str, ds, pool: str = "sum",
+                  device: str = "cuda") -> dict:
     from score_tpu_torch.serve import ScoringService
 
-    cfg = bench_config("bfloat16")
+    cfg = bench_config("bfloat16", pool=pool)
     sd = random_weights(cfg, ds)
     svc = ScoringService(cfg, ds, sd, device=device)
     rng = np.random.default_rng(SEED)
@@ -441,13 +648,8 @@ def phase_serving(card: str, ds, device: str = "cuda") -> dict:
     top_i, top_s = svc.topk(u, k=10)
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in fns.items()}
-    log(f"[serve] launches in the serving run: {launches}")
-    for name in ("gather_rows", "cross_coattn_cand"):
-        if launches[name] == 0:
-            raise AssertionError(f"{name} was never launched by serving")
-    for name in ("scatter_add_rows", "cross_coattn_cand_bwd"):
-        if launches[name] != 0:
-            raise AssertionError(f"serving launched the backward {name}")
+    log(f"[serve {pool}] launches in the serving run: {launches}")
+    check_launches(f"serving, pool {pool}", launches, SERVE_KERNELS[pool])
     for name, arr, shape in (("score", s1, (100,)),
                              ("score_batch", sb, (ROWS, WIDE)),
                              ("topk", top_s, (10,))):
@@ -457,20 +659,21 @@ def phase_serving(card: str, ds, device: str = "cuda") -> dict:
         raise AssertionError("topk is not sorted over real items")
     np.testing.assert_allclose(svc.score(u, top_i), top_s,
                                **CPU_TOL["bfloat16"])
-    log(f"[serve] score std {s1.std():.4f}; topk items {top_i.tolist()}")
+    log(f"[serve {pool}] score std {s1.std():.4f}; topk items "
+        f"{top_i.tolist()}")
 
     # the card against the CPU's plain path, same weights, 4 x 256
     users4 = ds.test.user[ROWS:ROWS + 4].astype(np.int32)
     items4 = rng.integers(1, ds.num_items + 1, (4, 256)).astype(np.int32)
     for dtype in ("float32", "bfloat16"):
-        c = bench_config(dtype)
+        c = bench_config(dtype, pool=pool)
         gpu = svc if dtype == "bfloat16" else ScoringService(
             c, ds, sd, device=device)
         cpu = ScoringService(c, ds, sd, device="cpu")
         got, want = gpu.score_batch(users4, items4), cpu.score_batch(
             users4, items4)
         np.testing.assert_allclose(got, want, **CPU_TOL[dtype])
-        log(f"[serve] {dtype} card vs cpu 4x256: max_abs_err "
+        log(f"[serve {pool}] {dtype} card vs cpu 4x256: max_abs_err "
             f"{np.abs(got - want).max():.3e} (tol {CPU_TOL[dtype]})")
         del gpu, cpu
 
@@ -495,11 +698,11 @@ def phase_serving(card: str, ds, device: str = "cuda") -> dict:
         t0 = time.perf_counter()
         svc.topk(u, k=10)
         tk.append(time.perf_counter() - t0)
-    log(f"[serve] score(u, 101) latency p50 {p50:.3f} ms (q25 {q[0]:.3f}, "
-        f"q75 {q[1]:.3f}, p90 {q[2]:.3f}; 200 calls) [{card}]")
-    log(f"[serve] score_batch {ROWS}x{WIDE}: {cps:.0f} candidates/s "
+    log(f"[serve {pool}] score(u, 101) latency p50 {p50:.3f} ms (q25 "
+        f"{q[0]:.3f}, q75 {q[1]:.3f}, p90 {q[2]:.3f}; 200 calls) [{card}]")
+    log(f"[serve {pool}] score_batch {ROWS}x{WIDE}: {cps:.0f} candidates/s "
         f"[{card}]")
-    log(f"[serve] topk over {ds.num_items} items: median "
+    log(f"[serve {pool}] topk over {ds.num_items} items: median "
         f"{statistics.median(tk):.4f} s of {tk} [{card}]")
     del svc
     torch.cuda.empty_cache()
@@ -520,7 +723,8 @@ def _tables(state) -> dict:
             for k, v in state.model.named_parameters() if "table" in k}
 
 
-def _profile(state, graph, batches, neg_iw, card, step_ms) -> None:
+def _profile(state, graph, batches, neg_iw, card, step_ms,
+             tag: str = "[train]") -> None:
     """Device time by kernel over the steady steps of a torch.profiler
     window (the first two steps start the profiler and are not counted).
     The profiler slows the host, so the idle share is given twice: within
@@ -547,31 +751,37 @@ def _profile(state, graph, batches, neg_iw, card, step_ms) -> None:
             rows.append((ev.self_device_time_total / 1e3, ev.count, ev.key))
     busy = sum(r[0] for r in rows)
     per_step = busy / active
-    log(f"[train] profile of {active} steps: "
+    log(f"{tag} profile of {active} steps: "
         f"{sum(r[1] for r in rows) / active:.0f} kernels and {per_step:.3f} "
         f"ms of device time a step; idle share {1 - busy / wall:.3f} of the "
         f"profiled window ({wall / active:.3f} ms a step), "
         f"{1 - per_step / step_ms:.3f} of an unprofiled {step_ms:.3f} ms "
         f"step [{card}]")
     for ms, cnt, key in sorted(rows, reverse=True)[:15]:
-        log(f"[train]   {ms:8.3f} ms {100 * ms / busy:5.1f}% x{cnt:<5} "
+        log(f"{tag}   {ms:8.3f} ms {100 * ms / busy:5.1f}% x{cnt:<5} "
             f"{key[:100]}")
 
 
-def phase_training(card: str, ds, dev) -> dict:
+def phase_training(card: str, ds, dev, pool: str = "sum",
+                   steps: int = TIMED_STEPS) -> dict:
+    """Warm-up, then `steps` timed steps whose launches are counted; with
+    50 or more steps the loss must fall and a profile follows."""
     from score_tpu_torch.graph import device_graph
     from score_tpu_torch.params import init_params
     from score_tpu_torch.train import (draw_shifts, init_state,
                                        item_importance_weights, train_loop,
                                        train_step)
-    cfg = bench_config("bfloat16")
+    full = steps >= TIMED_STEPS
+    tag = f"[train {pool}]"
+    cfg = bench_config("bfloat16", pool=pool)
     sd = init_params(cfg, ds.num_users, ds.num_items,
                      torch.Generator().manual_seed(SEED))
     state = init_state(cfg, ds.num_users, ds.num_items, sd, device=dev)
     graph = device_graph(ds.graph, dev)
     neg_iw = torch.from_numpy(
         item_importance_weights(ds.train, ds.num_items)).to(dev)
-    batches = _device_batches(ds, WARMUP_STEPS + TIMED_STEPS + 6, BATCH, dev)
+    batches = _device_batches(ds, WARMUP_STEPS + steps + 6 * full, BATCH,
+                              dev)
 
     # warm-up: tables change on steps 0 and 2 only
     losses, aucs = [], []
@@ -584,11 +794,11 @@ def phase_training(card: str, ds, dev) -> dict:
         changed = any(not torch.equal(v, after[k]) for k, v in before.items())
         if changed != (j % 2 == 0):
             raise AssertionError(f"step {j}: tables changed={changed}")
-    log(f"[train] warm-up: tables changed on steps 0 and 2 only; batch_auc "
+    log(f"{tag} warm-up: tables changed on steps 0 and 2 only; batch_auc "
         f"{aucs}")
 
     # the training run whose launches the counters report
-    timed = batches[WARMUP_STEPS:WARMUP_STEPS + TIMED_STEPS]
+    timed = batches[WARMUP_STEPS:WARMUP_STEPS + steps]
     shifts = [draw_shifts(state.generator, 1, BATCH) for _ in timed]
     fns = reset_counts()
     start = torch.cuda.Event(enable_timing=True)
@@ -599,42 +809,47 @@ def phase_training(card: str, ds, dev) -> dict:
     state, ms = train_loop(state, graph, timed, shifts, neg_iw)
     end.record()
     torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
-    ev_ms = start.elapsed_time(end) / TIMED_STEPS
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    ev_ms = start.elapsed_time(end) / steps
     launches = {k: fn.launches for k, fn in fns.items()}
-    log(f"[train] launches in {TIMED_STEPS} steps: {launches}")
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"{name} was never launched by training")
+    log(f"{tag} launches in {steps} steps: {launches}")
+    check_launches(f"training, pool {pool}", launches, TRAIN_KERNELS[pool])
     curve = [x.item() for x in losses] + ms["loss"].tolist()
     if not np.isfinite(curve).all():
         raise AssertionError(f"non-finite loss: {curve}")
-    if not np.mean(curve[-10:]) < curve[0]:
+    if full and not np.mean(curve[-10:]) < curve[0]:
         raise AssertionError(f"the loss did not fall: {curve}")
-    log(f"[train] loss curve ({len(curve)} steps): "
+    log(f"{tag} loss curve ({len(curve)} steps): "
         f"{[round(x, 5) for x in curve]}")
-    log(f"[train] batch_auc of the last step {ms['batch_auc'].item():.4f}")
-    log(f"[train] step {ev_ms:.3f} ms by CUDA events, {wall_ms:.3f} ms by "
+    log(f"{tag} batch_auc of the last step {ms['batch_auc'].item():.4f}")
+    log(f"{tag} step {ev_ms:.3f} ms by CUDA events, {wall_ms:.3f} ms by "
         f"wall clock; {BATCH / ev_ms * 1e3:.0f} examples/s (events), "
         f"{BATCH / wall_ms * 1e3:.0f} examples/s (wall) [{card}]")
-    log(f"[train] peak device memory "
+    log(f"{tag} peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    _profile(state, graph, batches[-6:], neg_iw, card, ev_ms)
+    if full:
+        _profile(state, graph, batches[-6:], neg_iw, card, ev_ms, tag)
     del state, graph, batches
     torch.cuda.empty_cache()
     return launches
 
 
-def phase_training_vs_cpu(ds, devices=("cuda", "cpu")) -> None:
-    """3 steps of configs3 at its own widths, f32, batch 256, on the card
-    and on the CPU from the same weights, batches and shifts."""
+def phase_training_vs_cpu(ds, pool: str = "sum",
+                          devices=("cuda", "cpu")) -> None:
+    """3 steps of configs3 (co-attention pool `pool`) at its own widths,
+    f32, batch 256, on the card and on the CPU from the same weights (the
+    co-attention's made non-zero), batches and shifts."""
     from score_tpu_torch.graph import device_graph
     from score_tpu_torch.params import init_params
     from score_tpu_torch.train import (init_state, item_importance_weights,
                                        train_step)
-    cfg = bench_config("float32", width=False)
-    sd = init_params(cfg, ds.num_users, ds.num_items,
-                     torch.Generator().manual_seed(SEED + 1))
+    cfg = bench_config("float32", width=False, pool=pool)
+    gen = torch.Generator().manual_seed(SEED + 1)
+    sd = init_params(cfg, ds.num_users, ds.num_items, gen)
+    # non-zero co-attention weights: at their zero init every pool scores
+    # the same (a zero relation matrix)
+    for k in ("coattn.wr", "coattn.wtu", "coattn.wti"):
+        sd[k] = torch.randn(sd[k].shape, generator=gen) * 0.3
     neg_iw = torch.from_numpy(item_importance_weights(ds.train, ds.num_items))
     batches = _device_batches(ds, 3, 256, "cpu")
     shifts = [[17], [101], [3]]
@@ -657,9 +872,66 @@ def phase_training_vs_cpu(ds, devices=("cuda", "cpu")) -> None:
         err = (got - want).abs().max().item()
         if err >= worst:
             worst, where = err, k
-    log(f"[train] f32 card vs cpu, 3 steps of batch 256: losses "
+    log(f"[train {pool}] f32 card vs cpu, 3 steps of batch 256: losses "
         f"{card[0]} vs {cpu[0]}; params max_abs_err "
         f"{worst:.3e} ({where}; tol {TRAIN_CPU_TOL})")
+
+
+# --- phase 5: eval ---------------------------------------------------------
+
+def _eval_model(cfg, ds, sd, device):
+    from score_tpu_torch.nn.model import ScoreModel
+    model = ScoreModel(cfg.model, ds.num_users, ds.num_items)
+    model.load_state_dict({k: v.to(device) for k, v in sd.items()},
+                          assign=True)
+    return model
+
+
+def phase_eval(card: str, ds, dev) -> None:
+    """The streaming evaluate of the max-pool model: bf16 at the bench
+    width over EVAL_TARGETS validation targets (timed), and f32 on
+    EVAL_CPU_TARGETS targets on the card and on the CPU."""
+    from score_tpu_torch.graph import device_graph
+    from score_tpu_torch.train import evaluate, make_eval_step
+    cfg = bench_config("bfloat16", pool="max")
+    sd = random_weights(cfg, ds)
+    graph = device_graph(ds.graph, dev)
+    step = make_eval_step(_eval_model(cfg, ds, sd, dev))
+    evaluate(step, graph, ds.val, EVAL_BATCH, max_targets=EVAL_BATCH)  # warm
+    fns = reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = evaluate(step, graph, ds.val, EVAL_BATCH, max_targets=EVAL_TARGETS)
+    secs = time.perf_counter() - t0           # evaluate reads back at its end
+    launches = {k: fn.launches for k, fn in fns.items()}
+    log(f"[eval] launches: {launches}")
+    check_launches("eval, pool max", launches, SERVE_KERNELS["max"])
+    if not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in got.values()):
+        raise AssertionError(f"eval metrics out of range: {got}")
+    n_neg = ds.val.neg.shape[1]
+    log(f"[eval] max pool bf16, {EVAL_TARGETS} val targets x (1 + {n_neg}), "
+        f"batch {EVAL_BATCH}: {secs:.4f} s, {EVAL_TARGETS / secs:.0f} "
+        f"targets/s [{card}]")
+    log(f"[eval] metrics "
+        f"{json.dumps({k: round(v, 6) for k, v in got.items()})}")
+    del step, graph
+
+    cfg32 = bench_config("float32", pool="max")
+    on_card, on_cpu = (
+        evaluate(make_eval_step(_eval_model(cfg32, ds, sd, device)),
+                 device_graph(ds.graph, device), ds.val, EVAL_BATCH,
+                 max_targets=EVAL_CPU_TARGETS)
+        for device in (dev, torch.device("cpu")))
+    worst = 0.0
+    for k, want in on_cpu.items():
+        err = abs(on_card[k] - want)
+        if err > (EVAL_AUC_TOL if k == "auc" else EVAL_TOL):
+            raise AssertionError(f"eval {k}: card {on_card[k]} vs cpu {want}")
+        worst = max(worst, err)
+    log(f"[eval] f32 card vs cpu on {EVAL_CPU_TARGETS} targets: max |diff| "
+        f"{worst:.3e} (tol {EVAL_TOL}, auc {EVAL_AUC_TOL}); card "
+        f"{json.dumps({k: round(v, 6) for k, v in on_card.items()})}")
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -673,14 +945,21 @@ def main() -> int:
     phase_device(card)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    gather = phase_gather(dev, gen)
-    coattn = phase_coattn(dev, gen)
-    scatter = phase_scatter(dev, gen)
-    coattn_bwd = phase_coattn_bwd(dev, gen)
+    gather = phase_gather(card, dev, gen)
+    coattn = phase_coattn(card, dev, gen)
+    pair = phase_coattn_pair(card, dev, gen)
+    scatter = phase_scatter(card, dev, gen)
+    coattn_bwd = phase_coattn_bwd(card, dev, gen)
+    pair_bwd = phase_coattn_pair_bwd(card, dev, gen)
     ds = bench_dataset()
-    phase_serving(card, ds)
-    launches = phase_training(card, ds, dev)
-    phase_training_vs_cpu(ds)
+    for pool in ("sum", "max", "mean"):
+        phase_serving(card, ds, pool)
+    launches = phase_training(card, ds, dev)              # sum pool
+    launches_pair = phase_training(card, ds, dev, "mean")
+    phase_training(card, ds, dev, "max", steps=MAX_POOL_STEPS)
+    for pool in ("sum", "mean", "max"):
+        phase_training_vs_cpu(ds, pool)
+    phase_eval(card, ds, dev)
     kernels = [
         dict(name="gather_rows", route="cuda",
              source="score_tpu_torch/csrc/gather.cu",
@@ -699,6 +978,14 @@ def main() -> int:
              source="score_tpu_torch/csrc/coattn_cand_bwd.cu",
              replaces="score_tpu/kernels/coattn_cand.py:301",
              launches=launches["cross_coattn_cand_bwd"], **coattn_bwd),
+        dict(name="cross_coattn_pair", route="cuda",
+             source="score_tpu_torch/csrc/coattn_pair.cu",
+             replaces="score_tpu/kernels/coattn.py:110",
+             launches=launches_pair["cross_coattn_pair"], **pair),
+        dict(name="cross_coattn_pair_bwd", route="cuda",
+             source="score_tpu_torch/csrc/coattn_pair_bwd.cu",
+             replaces="score_tpu/kernels/coattn.py:241",
+             launches=launches_pair["cross_coattn_pair_bwd"], **pair_bwd),
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

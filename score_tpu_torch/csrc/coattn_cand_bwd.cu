@@ -3,337 +3,13 @@
 //
 // Replaces score_tpu/kernels/coattn_cand.py:_cand_bwd (body
 // _cand_bwd_kernel over _fwd_common), the fused VJP of cross_coattn_cand.
-//
-// Forward, per (b, c, t), as coattn_cand.cu computes it:
-//   Em = sum_j mu_j Eu_j     w = Em @ Wr      (+ eu_b  if target-aware)
-//   Es = sum_k mi_k Ei_ck    v = Es @ Wr^T    (+ ei_bc if target-aware)
-//   a  = softmax_j(Eu_j . v * s | mu)    b = softmax_k(Ei_ck . w * s | mi)
-//   cu = sum_j a_j Eu_j                  ci = sum_k b_k Ei_ck
-// Backward, from dcu and dci (s = 1/sqrt(d)):
-//   da_j = Eu_j . dcu      dsu = a (da - sum a da)     (likewise db, dsi)
-//   dEu_j = sum_c [a_j dcu + s dsu_j v] + mu_j (dw @ Wr^T)
-//   dv    = s sum_j dsu_j Eu_j          dw = s sum_c sum_k dsi_k Ei_ck
-//   dEi_k = b_k dci + s dsi_k w + mi_k (dv @ Wr)
-//   deu   = sum_t dw, dei_c = sum_t dv   (zero when not target-aware)
-//   dWr   = sum_{b,t} [sum_c dv (x) Es + Em (x) dw]
-// A masked row has a_j = dsu_j = mu_j = 0, so its gradient is exact zeros.
-//
-// Bound on the H100: bytes in principle (it reads Eu, Ei, dcu, dci once
-// and writes dEu, dEi once, with a few hundred flops per row), but the
-// TPU kernel's sequential grid, which carried dWr and the sums over t and
-// c from one step to the next, has no counterpart here. The design:
-//   * one warp owns one example b and loops over t and, inside, over c,
-//     with lane l holding component l of every vector (d <= 32), so dEu
-//     (summed over c), dw, deu (summed over t) and dei (summed over t, in
-//     an f32 scratch row that only this warp touches) need no atomics;
-//   * the forward is recomputed in registers; the softmax of a row runs
-//     across lanes (lane j holds score j), so no score array is held;
-//   * dWr: each warp adds its outer products into its own [d, d] slice of
-//     shared memory (lane l owns column l: no bank conflicts, no atomics);
-//     the block sums its slices in a fixed order into a per-block partial,
-//     and a second small kernel sums the partials in a fixed order. The
-//     result is the same from run to run.
-// Parallelism is one warp per example, so this kernel wants B in the
-// thousands, as training gives it.
+// The kernel, its math, what bounds it on the H100 and its design are in
+// coattn_bwd.cuh, which coattn_pair_bwd.cu shares.
 
-#include <cmath>
-#include <cstdint>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-namespace {
-
-constexpr unsigned kFull = 0xffffffffu;
-constexpr float kNeg = -1e9f;
-constexpr int kWarpsPerBlock = 4;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's .to()
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-
-// Masked softmax across the warp: lane j holds score s of row j and
-// whether row j is valid. As the reference: invalid rows weigh 0, and a
-// warp with no valid row gives all zeros.
-__device__ __forceinline__ float lane_softmax(float s, bool valid) {
-  const float mx = warp_max(valid ? s : kNeg);
-  const float e = valid ? expf(s - mx) : 0.f;
-  return e / fmaxf(warp_sum(e), 1e-20f);
-}
-
-template <typename T, int MAXK>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-cand_bwd_kernel(const T* __restrict__ Eu, const T* __restrict__ Ei,
-                const uint8_t* __restrict__ mu, const uint8_t* __restrict__ mi,
-                const float* __restrict__ Wr, const T* __restrict__ eu,
-                const T* __restrict__ ei, const T* __restrict__ dcu,
-                const T* __restrict__ dci, T* __restrict__ dEu,
-                T* __restrict__ dEi, T* __restrict__ deu, T* __restrict__ dei,
-                float* __restrict__ dei_acc, float* __restrict__ dWr_part,
-                int B, int C, int Tn, int n, int m, int d, int target_aware,
-                float scale) {
-  extern __shared__ float smem[];
-  const int dd = d * d;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float* sWr = smem;                       // Wr[e][l] at e*d + l
-  float* sWrT = smem + dd;                 // Wr[l][e] at e*d + l
-  float* sdW = smem + (2 + warp) * dd;     // this warp's dWr slice
-  for (int i = threadIdx.x; i < dd; i += blockDim.x) {
-    const float x = Wr[i];
-    sWr[i] = x;
-    sWrT[(i % d) * d + i / d] = x;
-  }
-  for (int i = lane; i < dd; i += 32) sdW[i] = 0.f;
-  __syncthreads();
-
-  const bool act = lane < d;
-  const long long b = (long long)blockIdx.x * kWarpsPerBlock + warp;
-  if (b < B) {  // no early return: the block syncs again below
-    float deu_acc = 0.f;
-    for (int t = 0; t < Tn; ++t) {
-      const long long bt = b * Tn + t;
-      const T* Eu_bt = Eu + bt * n * d;
-      const unsigned mu_bits =
-          __ballot_sync(kFull, lane < n && mu[bt * n + lane]);
-      float eu_r[MAXK], dEu_r[MAXK];
-      float em = 0.f;
-#pragma unroll
-      for (int j = 0; j < MAXK; ++j) {
-        eu_r[j] = (((mu_bits >> j) & 1u) && act)
-                      ? to_f32(Eu_bt[j * d + lane]) : 0.f;
-        em += eu_r[j];
-        dEu_r[j] = 0.f;
-      }
-      float w = 0.f;
-      for (int e = 0; e < d; ++e) {
-        const float s = __shfl_sync(kFull, em, e);
-        if (act) w += s * sWr[e * d + lane];
-      }
-      if (target_aware && act) w += to_f32(eu[b * d + lane]);
-
-      float dw = 0.f;
-      for (int c = 0; c < C; ++c) {
-        const long long bc = b * C + c;
-        const long long bct = bc * Tn + t;
-        const T* Ei_c = Ei + bct * m * d;
-        const unsigned mi_bits =
-            __ballot_sync(kFull, lane < m && mi[bct * m + lane]);
-        float ei_r[MAXK];
-        float es = 0.f;
-#pragma unroll
-        for (int k = 0; k < MAXK; ++k) {
-          ei_r[k] = (((mi_bits >> k) & 1u) && act)
-                        ? to_f32(Ei_c[k * d + lane]) : 0.f;
-          es += ei_r[k];
-        }
-        float v = 0.f;
-        for (int e = 0; e < d; ++e) {
-          const float s = __shfl_sync(kFull, es, e);
-          if (act) v += s * sWrT[e * d + lane];
-        }
-        if (target_aware && act) v += to_f32(ei[bc * d + lane]);
-        const float g_cu = act ? to_f32(dcu[bct * d + lane]) : 0.f;
-        const float g_ci = act ? to_f32(dci[bct * d + lane]) : 0.f;
-
-        // scores and the weighted sums' gradients; lane j holds row j's
-        float su = kNeg, da = 0.f, si = kNeg, db = 0.f;
-#pragma unroll
-        for (int j = 0; j < MAXK; ++j) {
-          if ((mu_bits >> j) & 1u) {   // uniform across the warp
-            const float s = warp_sum(eu_r[j] * v) * scale;
-            const float g = warp_sum(eu_r[j] * g_cu);
-            if (lane == j) { su = s; da = g; }
-          }
-        }
-#pragma unroll
-        for (int k = 0; k < MAXK; ++k) {
-          if ((mi_bits >> k) & 1u) {
-            const float s = warp_sum(ei_r[k] * w) * scale;
-            const float g = warp_sum(ei_r[k] * g_ci);
-            if (lane == k) { si = s; db = g; }
-          }
-        }
-        const float a = lane_softmax(su, (mu_bits >> lane) & 1u);
-        const float bw = lane_softmax(si, (mi_bits >> lane) & 1u);
-        const float dsu = a * (da - warp_sum(a * da));
-        const float dsi = bw * (db - warp_sum(bw * db));
-
-        // user rows: dEu_j += a_j dcu + s dsu_j v; dv = s sum_j dsu_j Eu_j
-        float dv = 0.f;
-#pragma unroll
-        for (int j = 0; j < MAXK; ++j) {
-          if ((mu_bits >> j) & 1u) {
-            const float aj = __shfl_sync(kFull, a, j);
-            const float gj = __shfl_sync(kFull, dsu, j);
-            dEu_r[j] += aj * g_cu + scale * gj * v;
-            dv += gj * eu_r[j];
-          }
-        }
-        dv *= scale;
-        // item rows: dw += s dsi_k Ei_k; ei_r[k] becomes b_k dci + s dsi_k w
-#pragma unroll
-        for (int k = 0; k < MAXK; ++k) {
-          if ((mi_bits >> k) & 1u) {
-            const float bk = __shfl_sync(kFull, bw, k);
-            const float gk = __shfl_sync(kFull, dsi, k);
-            dw += scale * gk * ei_r[k];
-            ei_r[k] = bk * g_ci + scale * gk * w;
-          }
-        }
-        // through v = Es @ Wr^T: dEs = dv @ Wr, dWr[e][k] += dv_e Es_k
-        float des = 0.f;
-        for (int e = 0; e < d; ++e) {
-          const float s = __shfl_sync(kFull, dv, e);
-          if (act) {
-            des += s * sWr[e * d + lane];
-            sdW[e * d + lane] += s * es;
-          }
-        }
-        if (act) {
-          T* dEi_c = dEi + bct * m * d;
-#pragma unroll
-          for (int k = 0; k < MAXK; ++k) {
-            if (k < m) {
-              dEi_c[k * d + lane] =
-                  from_f32<T>(((mi_bits >> k) & 1u) ? ei_r[k] + des : 0.f);
-            }
-          }
-          if (target_aware) {
-            float* acc = dei_acc + bc * d + lane;
-            *acc = (t == 0 ? 0.f : *acc) + dv;
-          }
-        }
-      }
-
-      // through w = Em @ Wr: dEm = dw @ Wr^T, dWr[k][e] += Em_k dw_e
-      deu_acc += dw;
-      float dem = 0.f;
-      for (int e = 0; e < d; ++e) {
-        const float s = __shfl_sync(kFull, dw, e);
-        const float x = __shfl_sync(kFull, em, e);
-        if (act) {
-          dem += s * sWrT[e * d + lane];
-          sdW[e * d + lane] += x * dw;
-        }
-      }
-      if (act) {
-        T* dEu_bt = dEu + bt * n * d;
-#pragma unroll
-        for (int j = 0; j < MAXK; ++j) {
-          if (j < n) {
-            dEu_bt[j * d + lane] =
-                from_f32<T>(((mu_bits >> j) & 1u) ? dEu_r[j] + dem : 0.f);
-          }
-        }
-      }
-    }
-    if (act) {
-      deu[b * d + lane] = from_f32<T>(target_aware ? deu_acc : 0.f);
-      for (int c = 0; c < C; ++c) {
-        const long long i = (b * C + c) * d + lane;
-        dei[i] = from_f32<T>(target_aware ? dei_acc[i] : 0.f);
-      }
-    }
-  }
-
-  __syncthreads();
-  // the block's partial of dWr: its warps' slices in a fixed order
-  for (int i = threadIdx.x; i < dd; i += blockDim.x) {
-    float s = 0.f;
-    for (int w2 = 0; w2 < kWarpsPerBlock; ++w2) s += smem[(2 + w2) * dd + i];
-    dWr_part[(long long)blockIdx.x * dd + i] = s;
-  }
-}
-
-// out[e] = sum_g part[g][e] over G partials, in a fixed order: 32 entries a
-// block, 32 threads an entry, then the 32 sums in order.
-__global__ void __launch_bounds__(1024)
-sum_partials_kernel(const float* __restrict__ part, int G, int dd,
-                    float* __restrict__ out) {
-  __shared__ float red[32][33];
-  const int e = blockIdx.x * 32 + threadIdx.x;
-  float s = 0.f;
-  if (e < dd) {
-    for (int g = threadIdx.y; g < G; g += 32) s += part[(long long)g * dd + e];
-  }
-  red[threadIdx.y][threadIdx.x] = s;
-  __syncthreads();
-  if (threadIdx.y == 0 && e < dd) {
-    float tot = 0.f;
-    for (int r = 0; r < 32; ++r) tot += red[r][threadIdx.x];
-    out[e] = tot;
-  }
-}
-
-template <typename T, int MAXK>
-void launch(const void* Eu, const void* Ei, const void* mu, const void* mi,
-            const float* Wr, const void* eu, const void* ei, const void* dcu,
-            const void* dci, void* dEu, void* dEi, void* deu, void* dei,
-            float* dei_acc, float* dWr_part, float* dWr, int B, int C, int Tn,
-            int n, int m, int d, int target_aware, cudaStream_t stream) {
-  const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  const size_t smem = (size_t)(2 + kWarpsPerBlock) * d * d * sizeof(float);
-  const float scale = 1.0f / sqrtf((float)d);
-  cand_bwd_kernel<T, MAXK><<<blocks, kWarpsPerBlock * 32, smem, stream>>>(
-      (const T*)Eu, (const T*)Ei, (const uint8_t*)mu, (const uint8_t*)mi, Wr,
-      (const T*)eu, (const T*)ei, (const T*)dcu, (const T*)dci, (T*)dEu,
-      (T*)dEi, (T*)deu, (T*)dei, dei_acc, dWr_part, B, C, Tn, n, m, d,
-      target_aware, scale);
-  const int dd = d * d;
-  sum_partials_kernel<<<(dd + 31) / 32, dim3(32, 32), 0, stream>>>(
-      dWr_part, blocks, dd, dWr);
-}
-
-template <typename T>
-void dispatch(const void* Eu, const void* Ei, const void* mu, const void* mi,
-              const float* Wr, const void* eu, const void* ei, const void* dcu,
-              const void* dci, void* dEu, void* dEi, void* deu, void* dei,
-              float* dei_acc, float* dWr_part, float* dWr, int B, int C,
-              int Tn, int n, int m, int d, int target_aware,
-              cudaStream_t stream) {
-  const int k = n > m ? n : m;
-  if (k <= 10) {   // the benchmark's fan-out
-    launch<T, 10>(Eu, Ei, mu, mi, Wr, eu, ei, dcu, dci, dEu, dEi, deu, dei,
-                  dei_acc, dWr_part, dWr, B, C, Tn, n, m, d, target_aware,
-                  stream);
-  } else if (k <= 16) {
-    launch<T, 16>(Eu, Ei, mu, mi, Wr, eu, ei, dcu, dci, dEu, dEi, deu, dei,
-                  dei_acc, dWr_part, dWr, B, C, Tn, n, m, d, target_aware,
-                  stream);
-  } else {
-    launch<T, 32>(Eu, Ei, mu, mi, Wr, eu, ei, dcu, dci, dEu, dEi, deu, dei,
-                  dei_acc, dWr_part, dWr, B, C, Tn, n, m, d, target_aware,
-                  stream);
-  }
-}
-
-}  // namespace
+#include "coattn_bwd.cuh"
 
 // Number of per-block dWr partials cand_bwd needs room for, d*d floats each.
-extern "C" int cand_bwd_num_partials(int B) {
-  return (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
-}
+extern "C" int cand_bwd_num_partials(int B) { return bwd_num_partials(B); }
 
 // dtype: 0 = float32, 1 = bfloat16 (Eu, Ei, eu, ei, dcu, dci and the
 // gradients dEu, dEi, deu, dei share it). Wr and dWr are f32. dei_acc is
@@ -346,21 +22,10 @@ extern "C" int cand_bwd(const void* Eu, const void* Ei, const void* mu,
                         float* dei_acc, float* dWr_part, float* dWr, int B,
                         int C, int Tn, int n, int m, int d, int target_aware,
                         int dtype, void* stream) {
-  if (d < 1 || d > 32 || n < 1 || n > 32 || m < 1 || m > 32 || B < 1 ||
-      C < 1 || Tn < 1 || dtype < 0 || dtype > 1) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) {
-    dispatch<float>(Eu, Ei, mu, mi, Wr, eu, ei, dcu, dci, dEu, dEi, deu, dei,
-                    dei_acc, dWr_part, dWr, B, C, Tn, n, m, d, target_aware,
-                    s);
-  } else {
-    dispatch<__nv_bfloat16>(Eu, Ei, mu, mi, Wr, eu, ei, dcu, dci, dEu, dEi,
-                            deu, dei, dei_acc, dWr_part, dWr, B, C, Tn, n, m,
-                            d, target_aware, s);
-  }
-  return (int)cudaGetLastError();
+  return bwd_entry</*kMean=*/false>(Eu, Ei, mu, mi, Wr, eu, ei, dcu, dci,
+                                     dEu, dEi, deu, dei, dei_acc, dWr_part,
+                                     dWr, B, C, Tn, n, m, d, target_aware,
+                                     dtype, stream);
 }
 
 extern "C" const char* coattn_cand_bwd_error_string(int err) {

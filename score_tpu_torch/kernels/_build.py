@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` has a plain C interface. At first use it is compiled
 by `nvcc` for Hopper (`sm_90a`) into a shared library under
 `score_tpu_torch/_build/` and loaded with ctypes. The library's file name
-carries a hash of its source, so an edited source is rebuilt and a stale
-library is never loaded. A missing `nvcc` or a failed build raises.
+carries a hash of its source and of the shared `csrc/*.cuh` headers, so an
+edited source is rebuilt and a stale library is never loaded. A missing
+`nvcc` or a failed build raises.
 
 Every C entry point returns `cudaGetLastError()` after its launch; `check`
 turns a non-zero code into an exception.
@@ -50,7 +51,10 @@ def nvcc_path() -> str:
 
 def _build(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    # the shared headers count as part of every source
+    text = src.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()
                           ).hexdigest()[:12]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     if lib.exists():

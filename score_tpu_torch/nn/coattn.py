@@ -1,9 +1,25 @@
 """Per-slot neighbour-set aggregation: SCoRe's cross-neighbour co-attention.
 
-Counterpart of score_tpu/nn/coattn.py for the sum-pool candidates path
-(configs3), plus `masked_softmax` and `slot_mean`. The block itself runs in
-`kernels.coattn_cand.cross_coattn_cand`, forward and backward: the CUDA
-kernels for CUDA tensors, their plain versions for CPU tensors.
+Counterpart of score_tpu/nn/coattn.py for configs3's co-attention with the
+sum, mean and max pools of the relation matrix, plus `masked_softmax` and
+`slot_mean`. The routing mirrors the reference's (score_tpu/nn/coattn.py
+CrossCoAttention):
+  * pool='sum' runs the candidates-form kernels,
+    `kernels.coattn_cand.cross_coattn_cand`, forward and backward;
+  * pool='mean' or 'max' runs the per-pair kernels,
+    `kernels.coattn.cross_coattn_pair`, which read the shared user side
+    in place where the reference tiles it C times.
+The route follows the pool alone: the reference's benchmark switches
+`use_pallas` / `force_pairflat`, which send the sum pool through the
+per-pair form, have no counterpart here (`cross_coattn_pair` computes the
+sum pool too, and the kernel tests hold it to the candidates kernels).
+The candidates kernels compute the sum pool only. The reference's
+candidates path for 'mean' (count-normalised opposite-side sums) is the
+same function as its per-pair 'mean', so routing 'mean' through the
+per-pair kernels changes no result. Each kernel wrapper runs the CUDA
+kernel for CUDA tensors and its plain version for CPU tensors; the torch
+counterpart of the reference's `cross_coattn_ref` is
+`kernels.coattn.cross_coattn_pair_plain` (its flat form at C == 1).
 """
 
 from __future__ import annotations
@@ -11,6 +27,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..kernels.coattn import POOLS, cross_coattn_pair
 from ..kernels.coattn_cand import cross_coattn_cand
 
 _NEG = -1e9
@@ -41,7 +58,9 @@ def slot_mean(E: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 class CrossCoAttention(nn.Module):
     """Owns the bilinear Wr (and, target-aware, the target projections Wtu
-    and Wti); candidates-form forward with sum pooling.
+    and Wti); candidates-form forward with pooling `pool` ('sum', 'mean'
+    or 'max'), through the per-pair kernels for 'mean' and 'max', and
+    through the candidates kernels for 'sum'.
 
     Inputs: Eu [B,T,n,d] (user side, shared by the candidates),
     Ei [B,C,T,m,d], bool mu [B,T,n] and mi [B,C,T,m], eu [B,d],
@@ -55,8 +74,12 @@ class CrossCoAttention(nn.Module):
     False), and autograd of the roll sums each copy's gradient back onto
     its example."""
 
-    def __init__(self, dim: int, target_aware: bool = True):
+    def __init__(self, dim: int, pool: str = "sum",
+                 target_aware: bool = True):
         super().__init__()
+        if pool not in POOLS:
+            raise ValueError(f"pool must be one of {POOLS}, got {pool!r}")
+        self.pool = pool
         self.target_aware = target_aware
         self.wr = nn.Parameter(torch.zeros(dim, dim))
         if target_aware:
@@ -71,5 +94,9 @@ class CrossCoAttention(nn.Module):
             # project each target once: einsum("de,bce->bcd", W, x) is x @ W^T
             ei = ei @ self.wtu.to(dt).T
             eu = eu @ self.wti.to(dt).T
-        return cross_coattn_cand(Eu, Ei, mu, mi, self.wr.to(dt), eu, ei,
+        Wr = self.wr.to(dt)
+        if self.pool == "sum":
+            return cross_coattn_cand(Eu, Ei, mu, mi, Wr, eu, ei,
+                                     self.target_aware)
+        return cross_coattn_pair(Eu, Ei, mu, mi, Wr, eu, ei, self.pool,
                                  self.target_aware)

@@ -4,8 +4,8 @@ Counterpart of score_tpu/nn/model.py:ScoreModel, for serving and for
 training with in-batch negatives (`neg_shift`). Submodule
 and parameter names mirror the flax tree (tables, coattn, gru_u, gru_i,
 pool_u, pool_i, scorer), so `score_tpu_torch.params` maps one onto the
-other. Only configs3 with sum pooling is ported; other configurations
-raise NotImplementedError.
+other. Only configs3, with the sum, mean or max co-attention pool, is
+ported; other configurations raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -25,15 +25,16 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for anything but configs3 with sum pool."""
+    """Raise NotImplementedError for anything but configs3 (any
+    co-attention pool) in f32 or bf16."""
     want = dict(arch="score", sides="dual", slot_agg="coattn",
-                seq_encoder="gru", seq_pool="attn", coattn_pool="sum")
+                seq_encoder="gru", seq_pool="attn")
     bad = {k: getattr(cfg, k) for k, v in want.items()
            if getattr(cfg, k) != v}
     if bad or cfg.compute_dtype not in _DTYPES:
         raise NotImplementedError(
-            f"score_tpu_torch ports configs3 with coattn_pool='sum' and f32 "
-            f"or bf16 compute only; got {bad or cfg.compute_dtype}")
+            f"score_tpu_torch ports configs3 with f32 or bf16 compute only; "
+            f"got {bad or cfg.compute_dtype}")
 
 
 def _nbr_mask(cnt: torch.Tensor, fanout: int,
@@ -50,11 +51,13 @@ class ScoreModel(nn.Module):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
+        self.num_users, self.num_items = num_users, num_items
         self.compute_dtype = _DTYPES[cfg.compute_dtype]
         d, f = cfg.embed_dim, cfg.hidden_dim
         self.tables = EmbeddingTables(num_users, num_items, d,
                                       shared=cfg.shared_table)
-        self.coattn = CrossCoAttention(d, target_aware=cfg.target_aware)
+        self.coattn = CrossCoAttention(d, pool=cfg.coattn_pool,
+                                       target_aware=cfg.target_aware)
         self.gru_u = GRU(d, f)
         self.gru_i = GRU(d, f)
         self.pool_u = AttnPool(f, d)

@@ -54,6 +54,22 @@ def to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
     return tree
 
 
+def cast_tables(state_dict: Mapping[str, torch.Tensor],
+                compute_dtype: str) -> Dict[str, torch.Tensor]:
+    """With bf16 compute, the 2-D embedding tables cast to bf16 once (the
+    other leaves as they are). The model casts each gathered row to its
+    compute dtype, and rounding commutes with row selection, so the scores
+    are the same; the gathers move half the bytes. Serving
+    (`serve.ScoringService`) and eval (`train.make_eval_step`) both cast
+    here."""
+    sd = dict(state_dict)
+    if compute_dtype == "bfloat16":
+        for k, v in sd.items():
+            if "table" in k and v.dim() == 2:
+                sd[k] = v.to(torch.bfloat16)
+    return sd
+
+
 def opt_state_from_optax(opt_state) -> dict:
     """The Adam part of an optax state (optax.adam, alone or in a chain
     with masked scales) -> {count, mu, nu} with mu and nu as state_dicts,

@@ -24,6 +24,7 @@ from .config import Config
 from .data.schema import Dataset
 from .graph import DeviceGraph, device_graph, gather_candidate_batch
 from .nn.model import ScoreModel
+from .params import cast_tables
 
 _BUCKETS = (1, 16, 64, 256, 1024, 4096)
 
@@ -33,20 +34,6 @@ def _bucket(n: int) -> int:
         if n <= b:
             return b
     return -(-n // _BUCKETS[-1]) * _BUCKETS[-1]
-
-
-def prepare_state(state_dict: Mapping[str, torch.Tensor],
-                  compute_dtype: str) -> dict:
-    """Serving-side weight prep: with bf16 compute, cast the 2-D embedding
-    tables to bf16 once. Same values as casting each gathered row, since
-    rounding commutes with row selection; the gather moves half the
-    bytes."""
-    sd = dict(state_dict)
-    if compute_dtype == "bfloat16":
-        for k, v in sd.items():
-            if "table" in k and v.dim() == 2:
-                sd[k] = v.to(torch.bfloat16)
-    return sd
 
 
 class ScoringService:
@@ -65,7 +52,7 @@ class ScoringService:
         self.num_items = ds.num_items
         self.graph: DeviceGraph = device_graph(ds.graph, self.device)
         self.model = ScoreModel(cfg.model, ds.num_users, ds.num_items)
-        sd = prepare_state(state_dict, cfg.model.compute_dtype)
+        sd = cast_tables(state_dict, cfg.model.compute_dtype)
         self.model.load_state_dict(
             {k: v.to(self.device) for k, v in sd.items()}, assign=True)
         self.model.eval()

@@ -1,16 +1,18 @@
-"""Training: the configs3 train step and a K-step loop.
+"""Training: the configs3 train step, a K-step loop, and streaming eval.
 
 Counterpart of score_tpu/train.py (make_optimizer, item_importance_weights,
 _table_l2, the train step of _make_train_step_fn with in-batch negatives
-and stride-K table updates, and the train loop) for the path `bench.py`
-trains: in-batch importance-weighted negatives, Adam at a constant
-learning rate, `table_update_every` and `table_lr_boost`:
+and stride-K table updates, the train loop, make_eval_step, _eval_accum
+and evaluate) for the path `bench.py` trains: in-batch
+importance-weighted negatives, Adam at a constant learning rate,
+`table_update_every` and `table_lr_boost`; any co-attention pool:
 
     state = init_state(cfg, ds.num_users, ds.num_items, state_dict)
     graph = device_graph(ds.graph, state.device)
     neg_iw = torch.from_numpy(item_importance_weights(ds.train,
                                                       ds.num_items))
     state, metrics = train_step(state, graph, batch, neg_iw=neg_iw)
+    metrics = evaluate(make_eval_step(state.model), graph, ds.val)
 
 Everything runs on `device`, the CUDA card unless the caller asks for
 another. The parameters and Adam moments are updated in place. The step
@@ -18,23 +20,26 @@ never waits for the device: metrics come back as device tensors.
 
 Left out, and refused where a config asks for them: uniform negatives,
 neighbour re-sampling, optimizers other than Adam, learning-rate
-schedules, scorer dropout; eval, the `train()` loop, checkpoints and the
-CLI are not ported yet.
+schedules, scorer dropout; the `train()` driver, checkpoints and the CLI
+are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .config import Config
+from .data.pipeline import eval_index_batches
 from .graph import DeviceGraph, gather_candidate_batch
-from .metrics import auc
+from .metrics import (F16_BINS, auc, hist_auc, rank_sum_keys, ranking_sums,
+                      score_hists)
 from .nn.model import ScoreModel
 from .nn.scorer import bce_loss
+from .params import cast_tables
 
 
 def is_table(name: str) -> bool:
@@ -281,3 +286,83 @@ def train_loop(state: TrainState, graph: DeviceGraph,
     batch_auc = auc(m["logits"].reshape(-1), labels.reshape(-1),
                     m["weights"].reshape(-1))
     return state, {"loss": torch.stack(losses), "batch_auc": batch_auc[None]}
+
+
+def make_eval_step(model: ScoreModel) -> Callable:
+    """eval_step(graph, batch) scores each positive against its fixed
+    negatives: batch {user, item, slot [B], neg [B, N]} -> logits
+    [B, 1 + N], the positive first. It runs an inference copy of `model`
+    (`eval_step.model`): a snapshot of every weight as it stands now, the
+    tables cast once by `params.cast_tables` as serving casts them. In f32
+    and in bf16 alike, later training does not reach the copy, so make a
+    new step to evaluate the updated model."""
+    em = ScoreModel(model.cfg, model.num_users, model.num_items)
+    sd = cast_tables(model.state_dict(), model.cfg.compute_dtype)
+    em.load_state_dict({k: v.detach().clone() for k, v in sd.items()},
+                       assign=True)
+    em.eval()
+
+    @torch.inference_mode()
+    def eval_step(graph: DeviceGraph, batch: Mapping) -> torch.Tensor:
+        cand = torch.cat([batch["item"][:, None], batch["neg"]], dim=1)
+        mb = gather_candidate_batch(graph, batch["user"], cand,
+                                    batch["slot"])
+        return em.score_candidates(mb)
+
+    eval_step.model = em
+    return eval_step
+
+
+def _eval_accum(scores: torch.Tensor, w: torch.Tensor, carry: Dict,
+                bidx: int, ks: Sequence[int]) -> None:
+    """Fold one block of eval scores into the streaming carry, on the
+    device and in place: the two AUC histograms add (exact int32), and the
+    block's ranking sums fill row `bidx` of carry['msums'], so no f32
+    accumulator holds more than one block."""
+    pos = scores[:, 0].float()
+    neg = scores[:, 1:].float()
+    sums = ranking_sums(pos, neg, ks=ks, weights=w)
+    carry["msums"][bidx] = torch.stack([sums[k] for k in rank_sum_keys(ks)])
+    score_hists(pos, neg, w, carry["hist_pos"], carry["hist_neg"])
+
+
+def evaluate(eval_step: Callable, graph: DeviceGraph, targets,
+             batch_size: int = 256, ks: Sequence[int] = (1, 5, 10),
+             max_targets: Optional[int] = None) -> Dict[str, float]:
+    """Streaming split evaluation: the pooled AUC and the per-target
+    ranking metrics of `targets` (user, item, slot, neg), as the
+    reference's evaluate.
+
+    Fixed-size blocks from `data.pipeline.eval_index_batches` (the ragged
+    tail padded with weight 0) are scored back to back; each folds into
+    the device-resident carry (two F16_BINS histograms and one row of
+    ranking sums per block), which is read back once at the end and
+    reduced in f64 on the host. `max_targets` scores a subsample drawn
+    with a fixed seed (np.random.default_rng(0)), the same every run."""
+    n = len(targets)
+    sel = None
+    if max_targets is not None and n > max_targets:
+        sel = np.random.default_rng(0).choice(n, max_targets, replace=False)
+        n = max_targets
+    cols = {k: (getattr(targets, k) if sel is None
+                else getattr(targets, k)[sel])
+            for k in ("user", "item", "slot", "neg")}
+    dev = graph.u2i.device
+    names = rank_sum_keys(tuple(ks))
+    n_blocks = -(-n // batch_size)
+    carry = dict(hist_pos=torch.zeros(F16_BINS, dtype=torch.int32,
+                                      device=dev),
+                 hist_neg=torch.zeros(F16_BINS, dtype=torch.int32,
+                                      device=dev),
+                 msums=torch.zeros(n_blocks, len(names), device=dev))
+    for bi, (idx, w) in enumerate(eval_index_batches(n, batch_size)):
+        batch = {k: _as_device(v[idx], dev) for k, v in cols.items()}
+        scores = eval_step(graph, batch)
+        _eval_accum(scores, torch.from_numpy(w).to(dev), carry, bi, ks)
+    carry = {k: v.cpu().numpy() for k, v in carry.items()}   # one readback
+    sums = carry["msums"].astype(np.float64).sum(axis=0)
+    by_name = dict(zip(names, sums))
+    denom = max(by_name.pop("wsum"), 1.0)
+    out = {k: float(v / denom) for k, v in by_name.items()}
+    out["auc"] = hist_auc(carry["hist_pos"], carry["hist_neg"])
+    return out

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card: the
+gather and its scatter-add, and the candidates-form (sum pool) and
+per-pair (sum, mean, max) co-attention, forward and backward.
 
 Every test here is marked `cuda` and skips without a CUDA device. The file
 imports no JAX, so it also runs on a host that has none:
@@ -16,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from score_tpu_torch.kernels import coattn as tpair
 from score_tpu_torch.kernels import coattn_cand as tcand
 from score_tpu_torch.kernels import gather as tgather
 
@@ -159,3 +162,84 @@ def test_cand_bwd_kernel(cuda, B, C, T, n, m, d, ta, dtype):
     assert (got[0][0, 0] == 0).all() and (got[1][0, :, T - 1] == 0).all()
     again = tcand.cross_coattn_cand_bwd(*args, *grads, target_aware=ta)
     assert torch.equal(again[4], got[4])     # dWr is the same run to run
+
+
+@pytest.mark.parametrize("B,C,T,n,m,d,ta",
+                         [(4, 2, 3, 5, 6, 8, True),
+                          (4, 2, 3, 5, 6, 8, False),
+                          (3, 4, 2, 4, 3, 16, True),
+                          (5, 1, 4, 6, 5, 8, True),
+                          (3, 101, 9, 10, 10, 32, True),   # eval's 1 + 100
+                          (2, 5, 2, 32, 17, 32, True),     # MAXK 32
+                          (2, 3, 2, 12, 16, 32, False)])   # MAXK 16
+@pytest.mark.parametrize("pool", ["sum", "mean", "max"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pair_kernel(cuda, B, C, T, n, m, d, ta, pool, dtype):
+    args = _cand_inputs(np.random.default_rng(C + n), B, C, T, n, m, d,
+                        dtype, cuda)
+    before = tpair.cross_coattn_pair.launches
+    got = tpair.cross_coattn_pair(*args, pool=pool, target_aware=ta)
+    torch.cuda.synchronize()
+    assert tpair.cross_coattn_pair.launches == before + 1
+    want = tpair.cross_coattn_pair_plain(*args, pool=pool, target_aware=ta)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == (B, C, T, d)
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+    assert (got[0][0, :, 0] == 0).all() and (got[1][0, :, T - 1] == 0).all()
+
+
+@pytest.mark.parametrize("B,C,T,n,m,d,ta",
+                         [(4, 2, 3, 5, 6, 8, True),
+                          (37, 2, 9, 10, 10, 32, True),     # ragged B
+                          (3, 12, 2, 4, 3, 16, False),
+                          (2, 3, 2, 32, 17, 32, True)])
+@pytest.mark.parametrize("pool", ["sum", "mean"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pair_bwd_kernel(cuda, B, C, T, n, m, d, ta, pool, dtype):
+    rng = np.random.default_rng(B * C + n)
+    args = _cand_inputs(rng, B, C, T, n, m, d, dtype, cuda)
+    grads = [torch.from_numpy(rng.normal(size=(B, C, T, d)).astype(
+        np.float32)).to(dtype).to(cuda) for _ in range(2)]
+    before = tpair.cross_coattn_pair_bwd.launches
+    got = tpair.cross_coattn_pair_bwd(*args, *grads, pool=pool,
+                                      target_aware=ta)
+    torch.cuda.synchronize()
+    assert tpair.cross_coattn_pair_bwd.launches == before + 1
+    want = tpair.cross_coattn_pair_bwd_plain(*args, *grads, pool=pool,
+                                             target_aware=ta)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, g, w in zip(("dEu", "dEi", "deu", "dei", "dWr"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        scale = max(w.float().abs().max().item(), 1.0)
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol,
+                                   atol=tol * scale, msg=name)
+    assert (got[0][0, 0] == 0).all() and (got[1][0, :, T - 1] == 0).all()
+
+
+@pytest.mark.parametrize("pool", ["mean", "max"])
+def test_pair_function_launches_forward_and_backward(cuda, pool):
+    """Training through the autograd Function: the forward kernel, then the
+    backward kernel (mean) or the recompute VJP (max), against autograd
+    through the plain forward on the same inputs."""
+    rng = np.random.default_rng(11)
+    args = _cand_inputs(rng, 6, 2, 3, 5, 6, 8, torch.float32, cuda)
+    dcu, dci = (torch.from_numpy(rng.normal(size=(6, 2, 3, 8)).astype(
+        np.float32)).to(cuda) for _ in range(2))
+    grads = []
+    before = (tpair.cross_coattn_pair.launches,
+              tpair.cross_coattn_pair_bwd.launches)
+    for fn in (tpair.cross_coattn_pair, tpair.cross_coattn_pair_plain):
+        ts = [a.clone().requires_grad_(i in (0, 1, 4, 5, 6))
+              for i, a in enumerate(args)]
+        cu, ci = fn(*ts, pool=pool, target_aware=True)
+        grads.append(torch.autograd.grad(
+            (cu * dcu).sum() + (ci * dci).sum(),
+            [ts[i] for i in (0, 1, 4, 5, 6)]))
+    torch.cuda.synchronize()
+    assert (tpair.cross_coattn_pair.launches,
+            tpair.cross_coattn_pair_bwd.launches) == (
+                before[0] + 1, before[1] + (pool == "mean"))
+    for g, w in zip(*grads):
+        scale = max(w.abs().max().item(), 1.0)
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * scale)

@@ -188,7 +188,7 @@ def test_service_refuses_out_of_range_ids(tiny_dataset):
         port.score(-1, [1])
 
 
-@pytest.mark.parametrize("over", [dict(coattn_pool="max"),
+@pytest.mark.parametrize("over", [dict(seq_encoder="selfattn"),
                                   dict(slot_agg="mean"),
                                   dict(seq_pool="last")])
 def test_model_outside_slice_raises(tiny_dataset, over):

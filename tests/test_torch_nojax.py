@@ -2,7 +2,8 @@
 without the JAX package: in a fresh interpreter that refuses to import
 jax, flax, optax, orbax or anything of score_tpu, build a dataset with the
 port's own host layer, score one request and take two train steps on the
-CPU. And the port's copies of that host layer (config presets, the
+CPU, with the sum pool and with the max pool, and evaluate the validation
+split. And the port's copies of that host layer (config presets, the
 synthetic generator, dataset prep, the batch iterator) give what the JAX
 package's give."""
 
@@ -53,7 +54,8 @@ from score_tpu_torch.data.prep_common import build_dataset
 from score_tpu_torch.graph import device_graph
 from score_tpu_torch.params import init_params
 from score_tpu_torch.serve import ScoringService
-from score_tpu_torch.train import (init_state, item_importance_weights,
+from score_tpu_torch.train import (evaluate, init_state,
+                                   item_importance_weights, make_eval_step,
                                    train_step)
 
 user, item, ts = synth.synth_events(100, 200, 3000, num_slots=4, seed=0)
@@ -70,18 +72,22 @@ sd = init_params(cfg, ds.num_users, ds.num_items,
 scores = ScoringService(cfg, ds, sd, device="cpu").score(1, [1, 2, 3])
 assert scores.shape == (3,) and np.isfinite(scores).all(), scores
 
-state = init_state(cfg, ds.num_users, ds.num_items, sd, device="cpu")
 graph = device_graph(ds.graph, "cpu")
 neg_iw = torch.from_numpy(item_importance_weights(ds.train, ds.num_items))
-it = TargetIterator(ds.train, 32, seed=0)
 losses = []
-for _ in range(2):
-    state, m = train_step(state, graph, next(it), neg_iw=neg_iw)
-    losses.append(m["loss"].item())
-assert state.step == 2 and np.isfinite(losses).all(), losses
+for pool in ("sum", "max"):
+    c = cfg.replace(model=dataclasses.replace(cfg.model, coattn_pool=pool))
+    state = init_state(c, ds.num_users, ds.num_items, sd, device="cpu")
+    it = TargetIterator(ds.train, 32, seed=0)
+    for _ in range(2):
+        state, m = train_step(state, graph, next(it), neg_iw=neg_iw)
+        losses.append(m["loss"].item())
+    assert state.step == 2 and np.isfinite(losses).all(), losses
+metrics = evaluate(make_eval_step(state.model), graph, ds.val, batch_size=16)
+assert 0.0 <= metrics["auc"] <= 1.0 and "ndcg@10" in metrics, metrics
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not loaded, loaded
-print("SERVED", scores.tolist(), "TRAINED", losses)
+print("SERVED", scores.tolist(), "TRAINED", losses, "EVALUATED", metrics)
 """
 
 
@@ -93,6 +99,7 @@ def test_port_serves_and_trains_without_jax():
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.startswith("SERVED"), proc.stdout
     assert "TRAINED" in proc.stdout, proc.stdout
+    assert "EVALUATED" in proc.stdout, proc.stdout
 
 
 @pytest.mark.parametrize("name", ["configs0", "configs1", "configs2",
