@@ -1,0 +1,129 @@
+#!/usr/bin/env python3
+"""The candidates co-attention forward (`cross_coattn_cand`) of two
+checkouts of the port, in turns, on one card.
+
+    python3 chip_ab_coattn.py DIR_A DIR_B
+
+Each DIR is a checkout of the repo (for example the parent commit unpacked
+with `git archive` next to the change). Every run is a fresh process that
+imports that checkout's `chip_smoke.py` and kernel wrapper, builds its
+kernel, and times `cross_coattn_cand` at each of SHAPES in bf16 and f32,
+on inputs made by that checkout's `chip_smoke._cand_inputs` from seed 0:
+the shapes `score` (B=1, C=256), `score_batch` (B=16, C=4096 and one user
+at C=4096), eval (B=512 and 256, C=101), training (B=4096, C=2), a ragged
+B and configs3's own d=16 give the kernel. Two times a shape, both CUDA
+events: "stream", the mean of ITERS calls of the wrapper after 3 warm-ups
+(`chip_smoke.cuda_ms`, as `chip_smoke.py` times it; where a call's host
+work outlasts the kernel, this is the host's time), and "graph", the mean
+launch of ITERS calls captured in one CUDA graph and replayed REPLAYS
+times, which leaves the host out. PAIRS pairs of runs go A B, then B A,
+and so on.
+
+The last line is a JSON object: the card's name and power limit, and for
+every shape and timing each side's times (ms) in run order, their
+medians, and the ratio of A's median to B's. Exits non-zero if any run
+fails. About 25 s a run on an H100.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+from chip_smoke import card_line
+
+PAIRS = 3
+ITERS = 50
+REPLAYS = 5
+SHAPES = [dict(B=1, C=256), dict(B=1, C=4096), dict(B=16, C=4096),
+          dict(B=512, C=101), dict(B=256, C=101), dict(B=4096, C=2),
+          dict(B=37, C=101), dict(B=64, C=101, d=16)]
+
+RUN = """
+import json, sys, torch
+sys.path.insert(0, '.')
+import chip_smoke as cs
+from score_tpu_torch.kernels.coattn_cand import cross_coattn_cand
+ITERS, REPLAYS = %d, %d
+dev = torch.device('cuda')
+gen = torch.Generator(device=dev).manual_seed(0)
+
+
+def graph_ms(fn):
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):      # warm up off the default stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(ITERS):
+            fn()
+    g.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(REPLAYS):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (REPLAYS * ITERS)
+
+
+out = {}
+for kw in %r:
+    for dtype in (torch.bfloat16, torch.float32):
+        args = cs._cand_inputs(gen, dev, dtype, **kw)
+        key = ' '.join(f'{k}={v}' for k, v in kw.items()) + ' ' + str(
+            dtype)[6:]
+        fn = lambda: cross_coattn_cand(*args)
+        out[key + ' stream'] = cs.cuda_ms(fn, iters=ITERS)
+        out[key + ' graph'] = graph_ms(fn)
+        del args, fn
+        torch.cuda.empty_cache()
+print('RESULT ' + json.dumps(out))
+""" % (ITERS, REPLAYS, SHAPES)
+
+
+def run(path: str) -> dict:
+    proc = subprocess.run([sys.executable, "-c", RUN], cwd=path,
+                          capture_output=True, text=True, timeout=600,
+                          env=dict(os.environ, PYTHONUNBUFFERED="1"))
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
+        raise SystemExit(f"run in {path} failed ({proc.returncode})")
+    line = [x for x in proc.stdout.splitlines() if x.startswith("RESULT ")]
+    res = json.loads(line[-1][len("RESULT "):])
+    print(f"[{path}] {json.dumps(res)}", flush=True)
+    return res
+
+
+def main() -> int:
+    if len(sys.argv) != 3:
+        print(__doc__, file=sys.stderr)
+        return 2
+    a, b = sys.argv[1:]
+    card = card_line()
+    runs = {a: [], b: []}
+    for i in range(PAIRS):
+        for d in (a, b) if i % 2 == 0 else (b, a):
+            runs[d].append(run(d))
+    shapes = {}
+    for key in runs[a][0]:
+        ta = [r[key] for r in runs[a]]
+        tb = [r[key] for r in runs[b]]
+        ma, mb = statistics.median(ta), statistics.median(tb)
+        shapes[key] = {a: ta, b: tb, "median_" + a: ma, "median_" + b: mb,
+                       "a_over_b": ma / mb}
+    print(json.dumps({"card": card, "pairs": PAIRS, "iters": ITERS,
+                      "replays": REPLAYS, "shapes": shapes}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

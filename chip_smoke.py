@@ -11,8 +11,9 @@ fails or no CUDA device is present.
    build of every kernel under score_tpu_torch/csrc (one nvcc per source,
    all at once, sm_90a), with ptxas's register and spill counts.
 2. Forward kernels against their plain PyTorch versions on the card, at
-   the shapes serving, eval and training give them: the gather, the
-   candidates-form co-attention (sum pool) and the per-pair co-attention
+   the shapes serving (`score`'s 1 x 256 bucket, `score_batch`'s chunk),
+   eval and training give them: the gather, the candidates-form
+   co-attention (sum pool) and the per-pair co-attention
    ([coattn_pair], max and mean pools; at the serving and training
    shapes also the sum pool, held against the candidates kernel on the
    same inputs). The gather must be exact; the co-attention agrees to
@@ -61,7 +62,9 @@ The line before the last lists each kernel with its launches in the
 training run of its path (the sum-pool run for the gather, scatter-add and
 candidates kernels, the mean-pool run for the per-pair kernels), its
 largest error against the plain version, and its, the plain version's and
-the library call's time beside its bound; the last line is
+the library call's time beside its bound (the candidates forward also
+gives its time and bound at the training shape, B=4096 C=2, where its
+launches are counted); the last line is
 {"ok": true, "device": {...}}. Every timing line carries the card's name
 and power limit.
 """
@@ -238,11 +241,12 @@ def _cand_work(args, C, backward: bool):
 def phase_coattn(card: str, dev, gen) -> dict:
     from score_tpu_torch.kernels.coattn_cand import (cross_coattn_cand,
                                                      cross_coattn_cand_plain)
-    shapes = [dict(B=1, C=4096), dict(B=16, C=4096), dict(B=512, C=101),
+    shapes = [dict(B=1, C=256),                           # score(u, 101)
+              dict(B=1, C=4096), dict(B=16, C=4096), dict(B=512, C=101),
               dict(B=4096, C=2), dict(B=37, C=101),       # ragged B
               dict(B=64, C=101, d=16)]                    # configs3 default d
     worst = 0.0
-    line = None
+    line = train = None
     for kw in shapes:
         for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32,
                                                         F32_TOL)):
@@ -273,9 +277,14 @@ def phase_coattn(card: str, dev, gen) -> dict:
                 if kw == dict(B=16, C=4096) and dtype == torch.bfloat16:
                     line = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                                 **b)
+                if kw == dict(B=4096, C=2) and dtype == torch.bfloat16:
+                    train = dict(training_shape_ms=ms,
+                                 training_shape_bound_ms=b["bound_ms"])
                 del args, got, want
     torch.cuda.empty_cache()
-    return dict(max_abs_err=worst, **line)
+    # the serving shape's times, and beside them the training shape's, at
+    # which the launches of the line are counted
+    return dict(max_abs_err=worst, **line, **train)
 
 
 def _pair_work(args, pool: str):

@@ -1,6 +1,8 @@
 // Device helpers shared by the co-attention kernels (coattn_cand.cu,
-// coattn_pair.cu and the backward in coattn_bwd.cuh). Every one of them
-// lays a [d]-vector across a warp, lane l holding component l (d <= 32).
+// coattn_pair.cu and the backward in coattn_bwd.cuh). The warp helpers lay
+// a [d]-vector across a warp, lane l holding component l (d <= 32), as
+// coattn_pair.cu and the backward do; coattn_cand.cu takes only the
+// conversions and kNeg.
 
 #pragma once
 

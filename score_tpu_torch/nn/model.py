@@ -15,7 +15,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ..config import ModelConfig
+from ..config import Config, ModelConfig
 from .coattn import CrossCoAttention, roll_candidates
 from .embed import EmbeddingTables
 from .encoder import GRU, AttnPool
@@ -26,7 +26,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for anything but configs3 (any
-    co-attention pool) in f32 or bf16."""
+    co-attention pool) in f32 or bf16 compute over f32 parameters."""
     want = dict(arch="score", sides="dual", slot_agg="coattn",
                 seq_encoder="gru", seq_pool="attn")
     bad = {k: getattr(cfg, k) for k, v in want.items()
@@ -35,6 +35,23 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"score_tpu_torch ports configs3 with f32 or bf16 compute only; "
             f"got {bad or cfg.compute_dtype}")
+    # the master weights are f32: the table-gradient scatter-add takes f32
+    if cfg.param_dtype != "float32":
+        raise NotImplementedError(
+            f"score_tpu_torch keeps float32 parameters only; got "
+            f"param_dtype={cfg.param_dtype!r}")
+
+
+def check_config(cfg: Config) -> None:
+    """check_supported on the model, and refuse a sharded layout: the port
+    runs on one device, and a sharded config must not run as an unsharded
+    one."""
+    check_supported(cfg.model)
+    sh = cfg.sharding
+    if sh.num_data * sh.num_rows > 1:
+        raise NotImplementedError(
+            f"score_tpu_torch runs on one device; sharding is not ported "
+            f"(num_data={sh.num_data}, num_rows={sh.num_rows})")
 
 
 def _nbr_mask(cnt: torch.Tensor, fanout: int,

@@ -23,7 +23,7 @@ import torch
 from .config import Config
 from .data.schema import Dataset
 from .graph import DeviceGraph, device_graph, gather_candidate_batch
-from .nn.model import ScoreModel
+from .nn.model import ScoreModel, check_config
 from .params import cast_tables
 
 _BUCKETS = (1, 16, 64, 256, 1024, 4096)
@@ -44,6 +44,7 @@ class ScoringService:
                  state_dict: Mapping[str, torch.Tensor],
                  slot: Optional[int] = None, candidate_chunk: int = 4096,
                  topk_grid_rows: int = 16, device="cuda"):
+        check_config(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
         self.candidate_chunk = int(candidate_chunk)

@@ -20,8 +20,8 @@ never waits for the device: metrics come back as device tensors.
 
 Left out, and refused where a config asks for them: uniform negatives,
 neighbour re-sampling, optimizers other than Adam, learning-rate
-schedules, scorer dropout; the `train()` driver, checkpoints and the CLI
-are not ported yet.
+schedules, scorer dropout, sharded layouts and non-f32 parameters; the
+`train()` driver, checkpoints and the CLI are not ported yet.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ from .data.pipeline import eval_index_batches
 from .graph import DeviceGraph, gather_candidate_batch
 from .metrics import (F16_BINS, auc, hist_auc, rank_sum_keys, ranking_sums,
                       score_hists)
-from .nn.model import ScoreModel
+from .nn.model import ScoreModel, check_config
 from .nn.scorer import bce_loss
 from .params import cast_tables
 
@@ -164,6 +164,7 @@ class TrainState:
 
 def check_trainable(cfg: Config) -> None:
     """Raise NotImplementedError for what the port does not train yet."""
+    check_config(cfg)
     if cfg.data.train_neg_mode not in ("inbatch", "inbatch_iw"):
         raise NotImplementedError(
             f"score_tpu_torch trains with in-batch negatives only; got "
@@ -179,7 +180,9 @@ def init_state(cfg: Config, num_users: int, num_items: int,
                opt_state: Optional[Mapping] = None) -> TrainState:
     """A TrainState on `device` from f32 weights (`params.init_params` or
     `params.from_flax`), and optionally an optimizer state
-    {count, mu, nu} to start from."""
+    {count, mu, nu} to start from. A restored state resumes at step
+    `count`, as the reference's restored TrainState carries its step, so
+    stride-K table updates fall on the same steps."""
     check_trainable(cfg)
     model = ScoreModel(cfg.model, num_users, num_items)
     model.load_state_dict({k: v.to(device=device, dtype=torch.float32)
@@ -189,7 +192,8 @@ def init_state(cfg: Config, num_users: int, num_items: int,
     if opt_state is not None:
         opt.load_state(**opt_state)
     return TrainState(cfg=cfg, model=model, opt=opt,
-                      generator=torch.Generator().manual_seed(cfg.train.seed))
+                      generator=torch.Generator().manual_seed(cfg.train.seed),
+                      step=opt.count)
 
 
 def draw_shifts(generator: torch.Generator, k: int, B: int) -> List[int]:

@@ -59,17 +59,58 @@ def _cand_inputs(rng, B, C, T, n, m, d, dtype, device):
     return [a.to(device) for a in args]
 
 
-@pytest.mark.parametrize("B,C,T,n,m,d,ta",
-                         [(4, 2, 3, 5, 6, 8, True),
-                          (4, 2, 3, 5, 6, 8, False),
-                          (3, 4, 2, 4, 3, 16, True),
-                          (5, 1, 4, 6, 5, 8, True),
-                          (3, 101, 9, 10, 10, 32, True),
-                          (2, 5, 2, 32, 17, 32, True)])
+def _unaligned(x):
+    """The same values in a contiguous view whose data pointer is one
+    element past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    buf[1:].copy_(x.reshape(-1))
+    return buf[1:].view(x.shape)
+
+
+# (B, C, T, n, m, d, target_aware, unaligned). The kernel takes a block of
+# up to 32 candidates per b (or, when one tile holds all C, several b's),
+# at least 264 blocks where B * C allows, and stages EuW = Eu @ Wr when
+# that tile holds >= n candidates (else it forms v per candidate); rows of
+# d * itemsize % 16 != 0 or unaligned inputs take its scalar path.
+CAND_CASES = [
+    (4, 2, 3, 5, 6, 8, True, False),
+    (4, 2, 3, 5, 6, 8, False, False),
+    (3, 4, 2, 4, 3, 16, True, False),
+    (5, 1, 4, 6, 5, 8, True, False),
+    (3, 101, 9, 10, 10, 32, True, False),
+    (2, 5, 2, 32, 17, 32, True, False),
+    (8, 45, 3, 10, 10, 32, True, False),      # ragged tiles of 2, per-c v
+    (40, 50, 3, 6, 6, 32, False, False),      # ragged tiles of 8, EuW
+    (1, 256, 9, 10, 10, 32, True, False),     # score(u, 101)'s bucket
+    (1, 4096, 9, 10, 10, 32, True, False),    # one user, a full chunk
+    (20, 200, 3, 5, 7, 7, True, False),       # 14 / 28 B rows, EuW
+    (30, 70, 4, 10, 10, 7, False, False),     # the same, per-c v
+    (20, 200, 3, 5, 9, 24, True, False),      # 48 / 96 B rows, EuW
+    (8, 45, 3, 10, 10, 24, True, False),      # the same, per-c v
+    (264, 32, 6, 32, 5, 16, True, False),     # n = 32, EuW in 2 t chunks
+    (6, 40, 3, 4, 32, 24, True, False),       # m = 32
+    (529, 2, 3, 4, 4, 8, True, False),        # 2 b's a block, the last 1
+    (1000, 3, 2, 5, 6, 16, False, False),     # 3 b's a block, the last 1
+    (40, 50, 3, 6, 6, 32, True, True),        # unaligned views, EuW
+    (8, 45, 3, 10, 10, 32, True, True),       # unaligned views, per-c v
+]
+
+
+@pytest.mark.parametrize(
+    "B,C,T,n,m,d,ta,unaligned", CAND_CASES,
+    ids=["-".join(map(str, c[:7])) + ("-unaligned" if c[7] else "")
+         for c in CAND_CASES])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cand_kernel(cuda, B, C, T, n, m, d, ta, dtype):
+def test_cand_kernel(cuda, B, C, T, n, m, d, ta, unaligned, dtype):
+    """The last candidate of the last b has every item row masked: its ci
+    must be exact zeros, as must the all-masked slots."""
     args = _cand_inputs(np.random.default_rng(C), B, C, T, n, m, d, dtype,
                         cuda)
+    args[3][B - 1, C - 1] = False
+    if unaligned:
+        args = [_unaligned(a) if i in (0, 1, 5, 6) else a
+                for i, a in enumerate(args)]
+        assert all(args[i].data_ptr() % 16 for i in (0, 1, 5, 6))
     before = tcand.cross_coattn_cand.launches
     got = tcand.cross_coattn_cand(*args, target_aware=ta)
     torch.cuda.synchronize()
@@ -78,8 +119,10 @@ def test_cand_kernel(cuda, B, C, T, n, m, d, ta, dtype):
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == (B, C, T, d)
+        assert torch.isfinite(g).all()
         torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
     assert (got[0][0, :, 0] == 0).all() and (got[1][0, :, T - 1] == 0).all()
+    assert (got[1][B - 1, C - 1] == 0).all()
 
 
 def test_cand_kernel_refuses_wide_rows(cuda):

@@ -31,8 +31,10 @@ from score_tpu.train import (_table_l2, build_model, init_state,
 from score_tpu_torch import graph as tgraph
 from score_tpu_torch import train as ttrain
 from score_tpu_torch.metrics import auc
+from score_tpu_torch.config import configs4
 from score_tpu_torch.params import (from_flax, init_params,
                                     opt_state_from_optax, to_flax)
+from score_tpu_torch.serve import ScoringService
 
 torch.set_num_threads(2)
 
@@ -70,12 +72,13 @@ class Setup:
         self.neg_iw_np = item_importance_weights(ds.train, ds.num_items)
         self.tgraph = tgraph.device_graph(ds.graph, "cpu")
 
-    def port_state(self):
-        sd = from_flax(jax.tree.map(np.asarray, self.jstate.params))
+    def port_state(self, jstate=None):
+        jstate = self.jstate if jstate is None else jstate
+        sd = from_flax(jax.tree.map(np.asarray, jstate.params))
         return ttrain.init_state(
             self.cfg, self.ds.num_users, self.ds.num_items, sd,
             device="cpu", opt_state=opt_state_from_optax(
-                jax.device_get(self.jstate.opt_state)))
+                jax.device_get(jstate.opt_state)))
 
     def shifts(self, step):
         """The reference's draw for k == 1 (score_tpu/train.py:199)."""
@@ -168,6 +171,56 @@ def test_three_stride2_steps_match_make_train_step(setup):
     for name in ("mu", "nu"):
         _close_tree(getattr(st.opt, name),
                     to_flax(jopt[name]), TOL, name)
+
+
+def test_restored_odd_count_resumes_stride(setup):
+    """A state restored after the reference's step 0 (Adam count 1) resumes
+    at step 1: the next stride-2 step is dense and the one after updates
+    the tables, as make_train_step does from the same state. Tables,
+    dense params and moments after two more steps match."""
+    s = setup
+    jstep = make_train_step(s.jmodel, s.cfg, neg_iw=jnp.asarray(s.neg_iw_np))
+    jstate = jax.tree.map(jnp.copy, s.jstate)
+    batches = [{k: jnp.asarray(v) for k, v in b.items()}
+               for b in _batches(s.ds, 3, seed=7)]
+    jstate, _ = jstep(jstate, s.jgraph, batches[0], s.rng)
+    st = s.port_state(jstate)
+    neg_iw = torch.from_numpy(s.neg_iw_np)
+    for step in (1, 2):
+        jstate, _ = jstep(jstate, s.jgraph, batches[step], s.rng)
+        st, _ = ttrain.train_step(
+            st, s.tgraph, {k: np.array(v) for k, v in
+                           batches[step].items()}, s.shifts(step), neg_iw)
+    jopt = opt_state_from_optax(jax.device_get(jstate.opt_state))
+    _close_tree(dict(st.model.named_parameters()), jstate.params, TOL,
+                "param")
+    for name in ("mu", "nu"):
+        _close_tree(getattr(st.opt, name), to_flax(jopt[name]), TOL, name)
+    assert st.step == st.opt.count == jopt["count"] == 3
+
+
+@pytest.mark.parametrize("entry", ["init_state", "ScoringService"])
+@pytest.mark.parametrize("case", ["configs4", "param_dtype"])
+def test_refuses_sharded_and_non_f32_params(tiny_dataset, entry, case):
+    """configs4 must not run as configs3 on one device, and bf16 master
+    weights are not ported (the table-gradient kernel takes f32)."""
+    ds = tiny_dataset
+    if case == "configs4":       # otherwise as the port trains configs3
+        base = configs4()
+        base = cfg = base.replace(data=dataclasses.replace(
+            base.data, train_neg_mode="inbatch_iw"))
+    else:
+        base = _cfg()
+        cfg = base.replace(model=dataclasses.replace(
+            base.model, param_dtype="bfloat16"))
+    w = init_params(base, ds.num_users, ds.num_items,
+                    torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError):
+        if entry == "init_state":
+            ttrain.init_state(cfg, ds.num_users, ds.num_items, w,
+                              device="cpu")
+        else:
+            ScoringService(cfg, ds, w, device="cpu")
 
 
 def test_train_loop_matches_sequential_steps(setup):
