@@ -1,18 +1,23 @@
 #!/usr/bin/env python3
-"""The candidates co-attention forward (`cross_coattn_cand`) of two
-checkouts of the port, in turns, on one card.
+"""The co-attention kernels of two checkouts of the port, in turns, on one
+card: the candidates forward (`cross_coattn_cand`) and the shared
+backward, for the sum pool (`cross_coattn_cand_bwd`) and the mean pool
+(`cross_coattn_pair_bwd`).
 
     python3 chip_ab_coattn.py DIR_A DIR_B
 
 Each DIR is a checkout of the repo (for example the parent commit unpacked
 with `git archive` next to the change). Every run is a fresh process that
-imports that checkout's `chip_smoke.py` and kernel wrapper, builds its
-kernel, and times `cross_coattn_cand` at each of SHAPES in bf16 and f32,
-on inputs made by that checkout's `chip_smoke._cand_inputs` from seed 0:
-the shapes `score` (B=1, C=256), `score_batch` (B=16, C=4096 and one user
-at C=4096), eval (B=512 and 256, C=101), training (B=4096, C=2), a ragged
-B and configs3's own d=16 give the kernel. Two times a shape, both CUDA
-events: "stream", the mean of ITERS calls of the wrapper after 3 warm-ups
+imports that checkout's `chip_smoke.py` and kernel wrappers, builds its
+kernels, and times them in bf16 and f32 on inputs made by that checkout's
+`chip_smoke._cand_inputs` from seed 0. The forward runs at each of
+FWD_SHAPES: the shapes `score` (B=1, C=256), `score_batch` (B=16, C=4096
+and one user at C=4096), eval (B=512 and 256, C=101), training (B=4096,
+C=2), a ragged B and configs3's own d=16 give it. The backwards run at
+BWD_SHAPES, `chip_smoke.phase_coattn_bwd`'s: training (B=4096, C=2), a
+ragged B, flat pairs (C=1) and d=16, target-aware, on output gradients
+drawn from the same generator. Two times a shape, both CUDA events:
+"stream", the mean of ITERS calls of the wrapper after 3 warm-ups
 (`chip_smoke.cuda_ms`, as `chip_smoke.py` times it; where a call's host
 work outlasts the kernel, this is the host's time), and "graph", the mean
 launch of ITERS calls captured in one CUDA graph and replayed REPLAYS
@@ -20,9 +25,11 @@ times, which leaves the host out. PAIRS pairs of runs go A B, then B A,
 and so on.
 
 The last line is a JSON object: the card's name and power limit, and for
-every shape and timing each side's times (ms) in run order, their
-medians, and the ratio of A's median to B's. Exits non-zero if any run
-fails. About 25 s a run on an H100.
+every kernel, shape and timing each side's times (ms) in run order, their
+medians, and the ratio of A's median to B's. The forward's keys read
+"B=.. C=.. <dtype> <timing>", the backwards' "cand_bwd sum B=.. ..." and
+"pair_bwd mean B=.. ...". Exits non-zero if any run fails. About 45 s a
+run on an H100.
 """
 
 from __future__ import annotations
@@ -38,15 +45,19 @@ from chip_smoke import card_line
 PAIRS = 3
 ITERS = 50
 REPLAYS = 5
-SHAPES = [dict(B=1, C=256), dict(B=1, C=4096), dict(B=16, C=4096),
-          dict(B=512, C=101), dict(B=256, C=101), dict(B=4096, C=2),
-          dict(B=37, C=101), dict(B=64, C=101, d=16)]
+FWD_SHAPES = [dict(B=1, C=256), dict(B=1, C=4096), dict(B=16, C=4096),
+              dict(B=512, C=101), dict(B=256, C=101), dict(B=4096, C=2),
+              dict(B=37, C=101), dict(B=64, C=101, d=16)]
+BWD_SHAPES = [dict(B=4096, C=2), dict(B=37, C=2), dict(B=64, C=1),
+              dict(B=64, C=2, d=16)]
 
 RUN = """
 import json, sys, torch
 sys.path.insert(0, '.')
 import chip_smoke as cs
-from score_tpu_torch.kernels.coattn_cand import cross_coattn_cand
+from score_tpu_torch.kernels.coattn import cross_coattn_pair_bwd
+from score_tpu_torch.kernels.coattn_cand import (cross_coattn_cand,
+                                                 cross_coattn_cand_bwd)
 ITERS, REPLAYS = %d, %d
 dev = torch.device('cuda')
 gen = torch.Generator(device=dev).manual_seed(0)
@@ -75,23 +86,45 @@ def graph_ms(fn):
     return start.elapsed_time(end) / (REPLAYS * ITERS)
 
 
+def time_both(key, fn):
+    out[key + ' stream'] = cs.cuda_ms(fn, iters=ITERS)
+    out[key + ' graph'] = graph_ms(fn)
+
+
 out = {}
 for kw in %r:
     for dtype in (torch.bfloat16, torch.float32):
         args = cs._cand_inputs(gen, dev, dtype, **kw)
         key = ' '.join(f'{k}={v}' for k, v in kw.items()) + ' ' + str(
             dtype)[6:]
-        fn = lambda: cross_coattn_cand(*args)
-        out[key + ' stream'] = cs.cuda_ms(fn, iters=ITERS)
-        out[key + ' graph'] = graph_ms(fn)
-        del args, fn
+        time_both(key, lambda: cross_coattn_cand(*args))
+        del args
+        torch.cuda.empty_cache()
+for kw in %r:
+    for dtype in (torch.bfloat16, torch.float32):
+        args = cs._cand_inputs(gen, dev, dtype, **kw)
+        grads = [torch.randn(kw['B'], kw['C'], cs.T, kw.get('d', cs.D),
+                             generator=gen, device=dev).to(dtype)
+                 for _ in range(2)]
+        key = ' '.join(f'{k}={v}' for k, v in kw.items()) + ' ' + str(
+            dtype)[6:]
+        time_both('cand_bwd sum ' + key, lambda: cross_coattn_cand_bwd(
+            *args, *grads, target_aware=True))
+        time_both('pair_bwd mean ' + key, lambda: cross_coattn_pair_bwd(
+            *args, *grads, pool='mean', target_aware=True))
+        del args, grads
         torch.cuda.empty_cache()
 print('RESULT ' + json.dumps(out))
-""" % (ITERS, REPLAYS, SHAPES)
+"""
 
 
-def run(path: str) -> dict:
-    proc = subprocess.run([sys.executable, "-c", RUN], cwd=path,
+def run_code(fwd_shapes, bwd_shapes) -> str:
+    """The program one run executes, timing the given shapes."""
+    return RUN % (ITERS, REPLAYS, fwd_shapes, bwd_shapes)
+
+
+def run(path: str, code: str) -> dict:
+    proc = subprocess.run([sys.executable, "-c", code], cwd=path,
                           capture_output=True, text=True, timeout=600,
                           env=dict(os.environ, PYTHONUNBUFFERED="1"))
     if proc.returncode != 0:
@@ -109,10 +142,11 @@ def main() -> int:
         return 2
     a, b = sys.argv[1:]
     card = card_line()
+    code = run_code(FWD_SHAPES, BWD_SHAPES)
     runs = {a: [], b: []}
     for i in range(PAIRS):
         for d in (a, b) if i % 2 == 0 else (b, a):
-            runs[d].append(run(d))
+            runs[d].append(run(d, code))
     shapes = {}
     for key in runs[a][0]:
         ta = [r[key] for r in runs[a]]

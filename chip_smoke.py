@@ -9,7 +9,8 @@ fails or no CUDA device is present.
 
 1. Device: the card's name and power limit, the CUDA versions, and the
    build of every kernel under score_tpu_torch/csrc (one nvcc per source,
-   all at once, sm_90a), with ptxas's register and spill counts.
+   all at once, sm_90a), with ptxas's register and spill counts, and a
+   line for each instance of the shared co-attention backward.
 2. Forward kernels against their plain PyTorch versions on the card, at
    the shapes serving (`score`'s 1 x 256 bucket, `score_batch`'s chunk),
    eval and training give them: the gather, the candidates-form
@@ -73,6 +74,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -141,6 +143,36 @@ def nbytes(*ts) -> int:
 
 # --- phase 1 ---------------------------------------------------------------
 
+_BWD_INSTANCE = re.compile(
+    r"coattn_bwd_kernelI(f|13__nv_bfloat16)Li(\d+)ELb([01])ELi(\d+)E")
+
+
+def bwd_usage(ptxas_log: str) -> list:
+    """Registers and spill bytes of each instance of the shared co-attention
+    backward in an `nvcc -Xptxas -v` log, as (instance, registers, spill
+    stores, spill loads)."""
+    usage, name, spills = [], None, (None, None)
+    for line in ptxas_log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w.$]+)", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        inst = _BWD_INSTANCE.search(name or "")
+        if m and inst:
+            dtype = "f32" if inst.group(1) == "f" else "bf16"
+            pool = "mean" if inst.group(3) == "1" else "sum"
+            width = "any d" if inst.group(4) == "0" else f"d={inst.group(4)}"
+            usage.append((f"coattn_bwd_kernel<{dtype}, MAXK={inst.group(2)}"
+                          f", {pool}, {width}>", int(m.group(1)), *spills))
+            name, spills = None, (None, None)
+    return usage
+
+
 def phase_device(card: str) -> None:
     from score_tpu_torch.kernels import _build
     log(f"[device] nvidia-smi: {card}")
@@ -158,6 +190,17 @@ def phase_device(card: str) -> None:
         for line in out.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"[device]   {line.strip()}")
+    for name in ("coattn_cand_bwd", "coattn_pair_bwd"):
+        if name not in _build.build_log:
+            log(f"[device] {name}: built before this run, no ptxas log")
+            continue
+        usage = bwd_usage(_build.build_log[name][1])
+        if not usage:
+            raise AssertionError(f"no backward instance in {name}'s ptxas "
+                                 f"log")
+        for inst, regs, stores, loads in usage:
+            log(f"[device] {name}: {inst}: {regs} registers, spill stores "
+                f"{stores} B, spill loads {loads} B")
 
 
 # --- phase 2: forward kernels ----------------------------------------------

@@ -20,21 +20,52 @@
 //   dWr   = sum_{b,t} [sum_c dv (x) Es + Em (x) dw]
 // A masked row has a_j = dsu_j = mu_j = 0, so its gradient is exact zeros.
 //
-// Bound on the H100: bytes in principle (it reads Eu, Ei, dcu, dci once
-// and writes dEu, dEi once, with a few hundred flops per row), but the
+// Replaces score_tpu/kernels/coattn_cand.py:_cand_bwd (body
+// _cand_bwd_kernel; sum pool) and score_tpu/kernels/coattn.py:
+// _coattn_bwd_pallas (body _coattn_bwd_kernel; sum and mean pools). The
 // TPU kernels' sequential grids, which carried dWr and the sums over t and
-// c from one step to the next, have no counterpart here. The design:
-//   * one warp owns one example b and loops over t and, inside, over c,
-//     with lane l holding component l of every vector (d <= 32), so dEu
-//     (summed over c), dw, deu (summed over t) and dei (summed over t, in
-//     an f32 scratch row that only this warp touches) need no atomics;
-//   * the forward is recomputed in registers; the softmax of a row runs
-//     across lanes (lane j holds score j), so no score array is held;
-//   * dWr: each warp adds its outer products into its own [d, d] slice of
-//     shared memory (lane l owns column l: no bank conflicts, no atomics);
-//     the block sums its slices in a fixed order into a per-block partial,
-//     and a second small kernel sums the partials in a fixed order. The
-//     result is the same from run to run.
+// c from one step to the next, have no counterpart here.
+//
+// Bound on the H100: bytes in principle (Eu, Ei, dcu, dci read once, dEu,
+// dEi written once: 0.038 ms at the training shape, B=4096 C=2 T=9
+// n=m=10 d=32 bf16), but each warp's chain of dependent shuffles, shared
+// loads and global loads sets the time, at 16 warps a SM (128 registers):
+// 0.149 ms by CUDA graph on an H100 SXM at 700 W, 3.9x the bound (this
+// design's predecessor: 0.451 ms; chip_ab_coattn.py). The design:
+//   * one warp owns one example b and loops over t and, inside, over c
+//     (a unit is one (b, c, t)), with lane l holding component l of every
+//     vector (d <= 32), so dEu (summed over c), dw, deu (summed over t)
+//     and dei (summed over t, in an f32 scratch row that only this warp
+//     touches) need no atomics; the forward is recomputed in registers;
+//   * scores and their gradients: each lane forms its partial products for
+//     every row at once and two transposing butterflies reduce them (user
+//     rows in lanes 0-15, item rows in lanes 16-31 while both sides have
+//     <= 16 rows), so lane j ends holding row j's score and gradient and
+//     each half-warp takes its softmax on its own;
+//   * the d x d products read Wr and Wr^T from shared memory as lane l's
+//     own padded row (8 16-byte loads, no bank conflict), against the
+//     vector being multiplied staged in a per-warp shared row (8
+//     broadcast loads); the softmax rows (a_j, dsu_j, b_j, dsi_j) are
+//     staged too, so no loop over rows or components branches or shuffles;
+//   * dWr: both outer products add to column `lane`, so each warp keeps
+//     its share in 32 registers; at the end the block adds its warps'
+//     shares in a fixed order into a per-block partial, and a second small
+//     kernel sums the partials in a fixed order: the same from run to run;
+//   * d = 32, the benchmark's width, has instances of its own (offsets and
+//     bounds fold into the instructions), and the next unit's item rows
+//     and mask are prefetched into L1 while the current one computes.
+// MIO instructions a unit (shuffles and shared-memory accesses, about one
+// a clock an SM) at the training shape, counted in the SASS of the bf16
+// 10-row instance (with C=2 a unit carries half its (b, t)'s terms):
+// ~620 before (230 butterfly shuffles in 40 warp sums and two softmaxes,
+// ~120 broadcast shuffles, ~110 scalar shared loads and ~35 stores in the
+// two products and the dWr updates, and ~120 for the (b, t) terms); ~130
+// after (62 shuffles, 42 16-byte shared loads and 4 stores in the unit,
+// and ~21 for the (b, t) terms), plus ~12 local-memory accesses of spills.
+// ptxas (nvcc 12.9, sm_90a), registers and spill stores / loads in bytes,
+// sum | mean pool: 10 rows, d = 32: bf16 128, 100/80 | 128, 28/40; f32
+// 128, 204/160 | 128, 60/76. 10 rows, any d: 128, 20/44 | 128, none.
+// 16 rows: 128 registers, 92-220 B. 32 rows: 236-237, none.
 // Parallelism is one warp per example, so this kernel wants B in the
 // thousands, as training gives it.
 
@@ -45,9 +76,67 @@
 namespace {
 
 constexpr int kBwdWarpsPerBlock = 4;
+// Row stride of the padded Wr copies in shared memory: 36 floats put the
+// 16-byte loads of 8 neighbouring lanes (one shared-memory wavefront) on
+// 8 distinct 4-bank groups.
+constexpr int kWrStride = 36;
 
-template <typename T, int MAXK, bool kMean>
-__global__ void __launch_bounds__(kBwdWarpsPerBlock * 32)
+// sum_e x[e] M[e] over e < 32, with x staged in shared memory (every lane
+// reads the same 16 bytes: a broadcast) and M the lane's own padded row;
+// four partial sums keep the dependent chain short.
+__device__ __forceinline__ float row_dot(const float* __restrict__ M,
+                                         const float* __restrict__ x) {
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const float4 c = reinterpret_cast<const float4*>(M)[q];
+    const float4 b = reinterpret_cast<const float4*>(x)[q];
+    s[0] += b.x * c.x;
+    s[1] += b.y * c.y;
+    s[2] += b.z * c.z;
+    s[3] += b.w * c.w;
+  }
+  return (s[0] + s[1]) + (s[2] + s[3]);
+}
+
+// acc[e] += x[e] * y for e < 32, x staged in shared memory (broadcast).
+__device__ __forceinline__ void outer_add(float* acc,
+                                          const float* __restrict__ x,
+                                          float y) {
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const float4 b = reinterpret_cast<const float4*>(x)[q];
+    acc[4 * q] += b.x * y;
+    acc[4 * q + 1] += b.y * y;
+    acc[4 * q + 2] += b.z * y;
+    acc[4 * q + 3] += b.w * y;
+  }
+}
+
+// Writes each lane's x to slot `lane` of the warp's shared row, once every
+// lane has finished reading the row's previous contents.
+__device__ __forceinline__ void stage(float* row, int lane, float x) {
+  __syncwarp();
+  row[lane] = x;
+  __syncwarp();
+}
+
+// Asks for the `count` elements at p to be brought into L1 without
+// waiting, one 128-byte line a lane (count * sizeof(T) <= 4096).
+template <typename T>
+__device__ __forceinline__ void prefetch_block(const T* p, int count,
+                                               int lane) {
+  const char* line = (const char*)p + lane * 128;
+  if (lane * 128 < count * (int)sizeof(T)) {
+    asm volatile("prefetch.global.L1 [%0];" ::"l"(line));
+  }
+}
+
+// kD: the width d where > 0, else read from d_in. Up to 16 rows, 4 blocks
+// a SM (128 registers): on the card, 3 (168 registers, no spills) ran
+// 1.3x slower and 5 (96, more spills) 1.2x slower.
+template <typename T, int MAXK, bool kMean, int kD>
+__global__ void __launch_bounds__(kBwdWarpsPerBlock * 32, MAXK <= 16 ? 4 : 1)
 coattn_bwd_kernel(const T* __restrict__ Eu, const T* __restrict__ Ei,
                   const uint8_t* __restrict__ mu,
                   const uint8_t* __restrict__ mi,
@@ -57,21 +146,42 @@ coattn_bwd_kernel(const T* __restrict__ Eu, const T* __restrict__ Ei,
                   T* __restrict__ dEi, T* __restrict__ deu,
                   T* __restrict__ dei, float* __restrict__ dei_acc,
                   float* __restrict__ dWr_part, int B, int C, int Tn, int n,
-                  int m, int d, int target_aware, float scale) {
-  extern __shared__ float smem[];
-  const int dd = d * d;
+                  int m, int d_in, int target_aware, float scale) {
+  // the width, a compile-time constant where kD > 0 (the row offsets and
+  // loop bounds then fold into the instructions)
+  const int d = kD > 0 ? kD : d_in;
+  // Rows of both sides share each butterfly when neither has more than
+  // 16: lane j < 16 holds user row j, lane 16 + k item row k.
+  constexpr bool kPacked = MAXK <= 16;
+  // Wr in two padded copies, zero outside [d, d]: lane l's coefficients
+  // of w = Em Wr and dEs = dv Wr are sWrT[l][e] = Wr[e][l], those of
+  // v = Es Wr^T and dEm = dw Wr^T are sWr[l][e] = Wr[l][e].
+  __shared__ __align__(16) float sWrT[32 * kWrStride];
+  __shared__ __align__(16) float sWr[32 * kWrStride];
+  // per warp: the vector being broadcast (Es, then dv, then dw), Em, and
+  // the softmax rows (a_j, dsu_j, b_j, dsi_j) at row j
+  __shared__ __align__(16) float sVec[kBwdWarpsPerBlock][32];
+  __shared__ __align__(16) float sEm[kBwdWarpsPerBlock][32];
+  __shared__ float4 sRow[kBwdWarpsPerBlock][32];
+  for (int i = threadIdx.x; i < 32 * kWrStride; i += blockDim.x) {
+    const int l = i / kWrStride, e = i % kWrStride;
+    const bool in = l < d && e < d;
+    sWrT[i] = in ? Wr[e * d + l] : 0.f;
+    sWr[i] = in ? Wr[l * d + e] : 0.f;
+  }
+  __syncthreads();
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  float* sWr = smem;                       // Wr[e][l] at e*d + l
-  float* sWrT = smem + dd;                 // Wr[l][e] at e*d + l
-  float* sdW = smem + (2 + warp) * dd;     // this warp's dWr slice
-  for (int i = threadIdx.x; i < dd; i += blockDim.x) {
-    const float x = Wr[i];
-    sWr[i] = x;
-    sWrT[(i % d) * d + i / d] = x;
-  }
-  for (int i = lane; i < dd; i += 32) sdW[i] = 0.f;
-  __syncthreads();
+  const float* rowT = sWrT + lane * kWrStride;
+  const float* row = sWr + lane * kWrStride;
+  float* vec = sVec[warp];
+  float* em_s = sEm[warp];
+  float4* rows = sRow[warp];
+  // this warp's share of dWr, acc[r] = dWr[r][lane]: both outer products
+  // add to column `lane`, so it stays in registers until the end
+  float acc[32];
+#pragma unroll
+  for (int r = 0; r < 32; ++r) acc[r] = 0.f;
 
   const bool act = lane < d;
   const long long b = (long long)blockIdx.x * kBwdWarpsPerBlock + warp;
@@ -95,11 +205,8 @@ coattn_bwd_kernel(const T* __restrict__ Eu, const T* __restrict__ Ei,
         dEu_r[j] = 0.f;
       }
       if (kMean) em *= inv_u;
-      float w = 0.f;
-      for (int e = 0; e < d; ++e) {
-        const float s = __shfl_sync(kFull, em, e);
-        if (act) w += s * sWr[e * d + lane];
-      }
+      stage(em_s, lane, em);   // lanes >= d hold 0, as every staged vector
+      float w = row_dot(rowT, em_s);
       if (target_aware && act) w += to_f32(eu[b * d + lane]);
 
       float dw = 0.f;
@@ -120,69 +227,87 @@ coattn_bwd_kernel(const T* __restrict__ Eu, const T* __restrict__ Ei,
           es += ei_r[k];
         }
         if (kMean) es *= inv_i;
-        float v = 0.f;
-        for (int e = 0; e < d; ++e) {
-          const float s = __shfl_sync(kFull, es, e);
-          if (act) v += s * sWrT[e * d + lane];
+        // While this unit computes, bring the next one's item rows and
+        // mask (and, before a new t, its user rows) into L1. Issued after
+        // this unit's loads, so they do not queue ahead of them.
+        if (c + 1 < C || t + 1 < Tn) {
+          const int c2 = c + 1 < C ? c + 1 : 0;
+          const int t2 = c + 1 < C ? t : t + 1;
+          const long long bct2 = (b * C + c2) * Tn + t2;
+          prefetch_block(Ei + bct2 * m * d, m * d, lane);
+          prefetch_block(mi + bct2 * m, m, lane);
+          if (c2 == 0) prefetch_block(Eu + (b * Tn + t2) * n * d, n * d, lane);
         }
+        stage(vec, lane, es);
+        float v = row_dot(row, vec);
         if (target_aware && act) v += to_f32(ei[bc * d + lane]);
         const float g_cu = act ? to_f32(dcu[bct * d + lane]) : 0.f;
         const float g_ci = act ? to_f32(dci[bct * d + lane]) : 0.f;
 
-        // scores and the weighted sums' gradients; lane j holds row j's
-        float su = kNeg, da = 0.f, si = kNeg, db = 0.f;
+        // Scores and the weighted sums' gradients, every row's at once, by
+        // transposing butterflies; then the softmaxes, whose rows go to
+        // shared memory for the broadcasts below (the last unit's reads of
+        // them ended before its stage of dv). Masked rows have zero
+        // partials and weigh 0, so a_j = dsu_j = 0 there.
+        if constexpr (kPacked) {
+          // one butterfly for both sides' scores, one for their gradients;
+          // each half-warp then takes its own softmax
+          float p[32];
 #pragma unroll
-        for (int j = 0; j < MAXK; ++j) {
-          if ((mu_bits >> j) & 1u) {   // uniform across the warp
-            const float s = warp_sum(eu_r[j] * v) * scale;
-            const float g = warp_sum(eu_r[j] * g_cu);
-            if (lane == j) { su = s; da = g; }
+          for (int j = 0; j < MAXK; ++j) {
+            p[j] = eu_r[j] * v;
+            p[16 + j] = ei_r[j] * w;
           }
-        }
+          const float s = transpose_sum<32, MAXK>(p, lane) * scale;
 #pragma unroll
-        for (int k = 0; k < MAXK; ++k) {
-          if ((mi_bits >> k) & 1u) {
-            const float s = warp_sum(ei_r[k] * w) * scale;
-            const float g = warp_sum(ei_r[k] * g_ci);
-            if (lane == k) { si = s; db = g; }
+          for (int j = 0; j < MAXK; ++j) {
+            p[j] = eu_r[j] * g_cu;
+            p[16 + j] = ei_r[j] * g_ci;
           }
+          const float g = transpose_sum<32, MAXK>(p, lane);
+          const unsigned bits = mu_bits | (mi_bits << 16);
+          const float a = lane_softmax<16>(s, (bits >> lane) & 1u);
+          const float ds = a * (g - warp_sum<16>(a * g));
+          // lane j < 16: (a_j, dsu_j) of row j; lane 16 + k: (b_k, dsi_k)
+          reinterpret_cast<float2*>(rows)[2 * (lane & 15) + (lane >> 4)] =
+              make_float2(a, ds);
+        } else {
+          float p[32];
+#pragma unroll
+          for (int j = 0; j < 32; ++j) p[j] = eu_r[j] * v;
+          const float su = transpose_sum<32>(p, lane) * scale;
+#pragma unroll
+          for (int j = 0; j < 32; ++j) p[j] = eu_r[j] * g_cu;
+          const float da = transpose_sum<32>(p, lane);
+#pragma unroll
+          for (int k = 0; k < 32; ++k) p[k] = ei_r[k] * w;
+          const float si = transpose_sum<32>(p, lane) * scale;
+#pragma unroll
+          for (int k = 0; k < 32; ++k) p[k] = ei_r[k] * g_ci;
+          const float db = transpose_sum<32>(p, lane);
+          const float a = lane_softmax(su, (mu_bits >> lane) & 1u);
+          const float bw = lane_softmax(si, (mi_bits >> lane) & 1u);
+          rows[lane] = make_float4(a, a * (da - warp_sum(a * da)), bw,
+                                   bw * (db - warp_sum(bw * db)));
         }
-        const float a = lane_softmax(su, (mu_bits >> lane) & 1u);
-        const float bw = lane_softmax(si, (mi_bits >> lane) & 1u);
-        const float dsu = a * (da - warp_sum(a * da));
-        const float dsi = bw * (db - warp_sum(bw * db));
+        __syncwarp();
 
-        // user rows: dEu_j += a_j dcu + s dsu_j v; dv = s sum_j dsu_j Eu_j
+        // user rows: dEu_j += a_j dcu + s dsu_j v; dv = s sum_j dsu_j Eu_j;
+        // item rows: dw += s dsi_k Ei_k; ei_r[k] becomes b_k dci + s dsi_k w
         float dv = 0.f;
 #pragma unroll
         for (int j = 0; j < MAXK; ++j) {
-          if ((mu_bits >> j) & 1u) {
-            const float aj = __shfl_sync(kFull, a, j);
-            const float gj = __shfl_sync(kFull, dsu, j);
-            dEu_r[j] += aj * g_cu + scale * gj * v;
-            dv += gj * eu_r[j];
-          }
+          const float4 r = rows[j];
+          dEu_r[j] += r.x * g_cu + scale * r.y * v;
+          dv += r.y * eu_r[j];
+          dw += scale * r.w * ei_r[j];
+          ei_r[j] = r.z * g_ci + scale * r.w * w;
         }
         dv *= scale;
-        // item rows: dw += s dsi_k Ei_k; ei_r[k] becomes b_k dci + s dsi_k w
-#pragma unroll
-        for (int k = 0; k < MAXK; ++k) {
-          if ((mi_bits >> k) & 1u) {
-            const float bk = __shfl_sync(kFull, bw, k);
-            const float gk = __shfl_sync(kFull, dsi, k);
-            dw += scale * gk * ei_r[k];
-            ei_r[k] = bk * g_ci + scale * gk * w;
-          }
-        }
         // through v = Es @ Wr^T: dEs = dv @ Wr, dWr[e][k] += dv_e Es_k
-        float des = 0.f;
-        for (int e = 0; e < d; ++e) {
-          const float s = __shfl_sync(kFull, dv, e);
-          if (act) {
-            des += s * sWr[e * d + lane];
-            sdW[e * d + lane] += s * es;
-          }
-        }
+        stage(vec, lane, dv);
+        float des = row_dot(rowT, vec);
+        outer_add(acc, vec, es);
         if (kMean) des *= inv_i;   // through the mean's division
         if (act) {
           T* dEi_c = dEi + bct * m * d;
@@ -194,23 +319,17 @@ coattn_bwd_kernel(const T* __restrict__ Eu, const T* __restrict__ Ei,
             }
           }
           if (target_aware) {
-            float* acc = dei_acc + bc * d + lane;
-            *acc = (t == 0 ? 0.f : *acc) + dv;
+            float* x = dei_acc + bc * d + lane;
+            *x = (t == 0 ? 0.f : *x) + dv;
           }
         }
       }
 
       // through w = Em @ Wr: dEm = dw @ Wr^T, dWr[k][e] += Em_k dw_e
       deu_acc += dw;
-      float dem = 0.f;
-      for (int e = 0; e < d; ++e) {
-        const float s = __shfl_sync(kFull, dw, e);
-        const float x = __shfl_sync(kFull, em, e);
-        if (act) {
-          dem += s * sWrT[e * d + lane];
-          sdW[e * d + lane] += x * dw;
-        }
-      }
+      stage(vec, lane, dw);
+      float dem = row_dot(row, vec);
+      outer_add(acc, em_s, dw);
       if (kMean) dem *= inv_u;
       if (act) {
         T* dEu_bt = dEu + bt * n * d;
@@ -232,14 +351,24 @@ coattn_bwd_kernel(const T* __restrict__ Eu, const T* __restrict__ Ei,
     }
   }
 
+  // The block's partial of dWr: its warps' shares added in a fixed order,
+  // warp 0 first, in sWrT, which no warp reads any more.
+  const int dd = d * d;
   __syncthreads();
-  // the block's partial of dWr: its warps' slices in a fixed order
-  for (int i = threadIdx.x; i < dd; i += blockDim.x) {
-    float s = 0.f;
-    for (int w2 = 0; w2 < kBwdWarpsPerBlock; ++w2) {
-      s += smem[(2 + w2) * dd + i];
+  for (int w2 = 0; w2 < kBwdWarpsPerBlock; ++w2) {
+    if (warp == w2 && act) {
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+        if (r < d) {
+          float* x = sWrT + r * d + lane;
+          *x = (w2 == 0 ? 0.f : *x) + acc[r];
+        }
+      }
     }
-    dWr_part[(long long)blockIdx.x * dd + i] = s;
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < dd; i += blockDim.x) {
+    dWr_part[(long long)blockIdx.x * dd + i] = sWrT[i];
   }
 }
 
@@ -269,7 +398,7 @@ inline int bwd_num_partials(int B) {
   return (B + kBwdWarpsPerBlock - 1) / kBwdWarpsPerBlock;
 }
 
-template <typename T, int MAXK, bool kMean>
+template <typename T, int MAXK, bool kMean, int kD>
 void bwd_launch(const void* Eu, const void* Ei, const void* mu, const void* mi,
                 const float* Wr, const void* eu, const void* ei,
                 const void* dcu, const void* dci, void* dEu, void* dEi,
@@ -277,10 +406,9 @@ void bwd_launch(const void* Eu, const void* Ei, const void* mu, const void* mi,
                 float* dWr, int B, int C, int Tn, int n, int m, int d,
                 int target_aware, cudaStream_t stream) {
   const int blocks = bwd_num_partials(B);
-  const size_t smem = (size_t)(2 + kBwdWarpsPerBlock) * d * d * sizeof(float);
   const float scale = 1.0f / sqrtf((float)d);
-  coattn_bwd_kernel<T, MAXK, kMean>
-      <<<blocks, kBwdWarpsPerBlock * 32, smem, stream>>>(
+  coattn_bwd_kernel<T, MAXK, kMean, kD>
+      <<<blocks, kBwdWarpsPerBlock * 32, 0, stream>>>(
           (const T*)Eu, (const T*)Ei, (const uint8_t*)mu,
           (const uint8_t*)mi, Wr, (const T*)eu, (const T*)ei,
           (const T*)dcu, (const T*)dci, (T*)dEu, (T*)dEi, (T*)deu, (T*)dei,
@@ -308,21 +436,29 @@ int bwd_entry(const void* Eu, const void* Ei, const void* mu, const void* mi,
   }
   cudaStream_t s = (cudaStream_t)stream;
   // The row arrays are sized at compile time: the smallest size that
-  // holds max(n, m) keeps registers low.
+  // holds max(n, m) keeps registers low. The benchmark's width, d = 32,
+  // has instances of its own up to 16 rows.
   const int k = n > m ? n : m;
-#define COATTN_BWD_LAUNCH(T, K)                                              \
-  bwd_launch<T, K, kMean>(Eu, Ei, mu, mi, Wr, eu, ei, dcu, dci, dEu, dEi, deu, \
-                          dei, dei_acc, dWr_part, dWr, B, C, Tn, n, m, d,    \
-                          target_aware, s)
-  if (dtype == 0) {
-    if (k <= 10) COATTN_BWD_LAUNCH(float, 10);   // the benchmark's fan-out
-    else if (k <= 16) COATTN_BWD_LAUNCH(float, 16);
-    else COATTN_BWD_LAUNCH(float, 32);
-  } else {
-    if (k <= 10) COATTN_BWD_LAUNCH(__nv_bfloat16, 10);
-    else if (k <= 16) COATTN_BWD_LAUNCH(__nv_bfloat16, 16);
-    else COATTN_BWD_LAUNCH(__nv_bfloat16, 32);
+#define COATTN_BWD_LAUNCH(T, K, D)                                           \
+  bwd_launch<T, K, kMean, D>(Eu, Ei, mu, mi, Wr, eu, ei, dcu, dci, dEu, dEi, \
+                             deu, dei, dei_acc, dWr_part, dWr, B, C, Tn, n,  \
+                             m, d, target_aware, s)
+#define COATTN_BWD_DISPATCH(T)                                               \
+  if (k <= 10) {                   /* the benchmark's fan-out */            \
+    if (d == 32) COATTN_BWD_LAUNCH(T, 10, 32);                               \
+    else COATTN_BWD_LAUNCH(T, 10, 0);                                        \
+  } else if (k <= 16) {                                                      \
+    if (d == 32) COATTN_BWD_LAUNCH(T, 16, 32);                               \
+    else COATTN_BWD_LAUNCH(T, 16, 0);                                        \
+  } else {                                                                   \
+    COATTN_BWD_LAUNCH(T, 32, 0);                                             \
   }
+  if (dtype == 0) {
+    COATTN_BWD_DISPATCH(float)
+  } else {
+    COATTN_BWD_DISPATCH(__nv_bfloat16)
+  }
+#undef COATTN_BWD_DISPATCH
 #undef COATTN_BWD_LAUNCH
   return (int)cudaGetLastError();
 }

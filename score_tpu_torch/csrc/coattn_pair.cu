@@ -55,40 +55,6 @@ constexpr int kCandPerWarp = 8;
 constexpr int kWarpsPerBlock = 8;
 enum Pool { kSum = 0, kMean = 1, kMax = 2 };
 
-// One step of the transposing butterfly: v holds 2H partial sums; lanes
-// whose bit `o` is set keep the upper H, the others the lower H, and each
-// adds its partner's copy of the half it keeps.
-template <int H>
-__device__ __forceinline__ void fold(float* v, int lane, int o) {
-  const bool up = (lane & o) != 0;
-#pragma unroll
-  for (int i = 0; i < H; ++i) {
-    const float send = up ? v[i] : v[i + H];
-    const float keep = up ? v[i + H] : v[i];
-    v[i] = keep + __shfl_xor_sync(kFull, send, o);
-  }
-}
-
-// Sums each of v[0..K) over the 32 lanes (K = 16 or 32; v is clobbered).
-// Returns, in lane l, the sum of v[l / (32 / K)].
-template <int K>
-__device__ __forceinline__ float transpose_sum(float* v, int lane) {
-  if constexpr (K == 32) {
-    fold<16>(v, lane, 16);
-    fold<8>(v, lane, 8);
-    fold<4>(v, lane, 4);
-    fold<2>(v, lane, 2);
-    fold<1>(v, lane, 1);
-  } else {
-    fold<8>(v, lane, 16);
-    fold<4>(v, lane, 8);
-    fold<2>(v, lane, 4);
-    fold<1>(v, lane, 2);
-    v[0] += __shfl_xor_sync(kFull, v[0], 1);
-  }
-  return v[0];
-}
-
 template <typename T, int MAXK, int POOL>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 pair_fwd_kernel(const T* __restrict__ Eu, const T* __restrict__ Ei,

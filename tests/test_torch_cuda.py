@@ -178,13 +178,23 @@ def test_gather_backward_launches_scatter_add(cuda):
                                                                100))
 
 
+# (B, C, T, n, m, d, target_aware) of the shared backward: d = 7 and 20
+# end Wr's padded rows in a partial 4-float vector; n = 16 with m = 3
+# builds the MAXK 16 instance, n = m = 1 the narrowest; _cand_inputs masks
+# every user row of (b=0, t=0) and every item row of (b=0, c, t=T-1).
+BWD_NEW_CASES = [(5, 2, 3, 6, 5, 7, True),
+                 (6, 3, 2, 9, 10, 20, False),
+                 (4, 2, 3, 16, 3, 32, True),
+                 (7, 2, 4, 1, 1, 16, True)]
+
+
 @pytest.mark.parametrize("B,C,T,n,m,d,ta",
                          [(4, 2, 3, 5, 6, 8, True),
                           (4, 2, 3, 5, 6, 8, False),
                           (37, 2, 9, 10, 10, 32, True),     # ragged B
                           (5, 1, 4, 6, 5, 16, True),
                           (3, 12, 2, 4, 3, 16, False),
-                          (2, 3, 2, 32, 17, 32, True)])
+                          (2, 3, 2, 32, 17, 32, True)] + BWD_NEW_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cand_bwd_kernel(cuda, B, C, T, n, m, d, ta, dtype):
     rng = np.random.default_rng(B * C)
@@ -199,6 +209,7 @@ def test_cand_bwd_kernel(cuda, B, C, T, n, m, d, ta, dtype):
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     for name, g, w in zip(("dEu", "dEi", "deu", "dei", "dWr"), got, want):
         assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert torch.isfinite(g).all(), name
         scale = max(w.float().abs().max().item(), 1.0)
         torch.testing.assert_close(g.float(), w.float(), rtol=tol,
                                    atol=tol * scale, msg=name)
@@ -236,7 +247,7 @@ def test_pair_kernel(cuda, B, C, T, n, m, d, ta, pool, dtype):
                          [(4, 2, 3, 5, 6, 8, True),
                           (37, 2, 9, 10, 10, 32, True),     # ragged B
                           (3, 12, 2, 4, 3, 16, False),
-                          (2, 3, 2, 32, 17, 32, True)])
+                          (2, 3, 2, 32, 17, 32, True)] + BWD_NEW_CASES)
 @pytest.mark.parametrize("pool", ["sum", "mean"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pair_bwd_kernel(cuda, B, C, T, n, m, d, ta, pool, dtype):
@@ -254,10 +265,14 @@ def test_pair_bwd_kernel(cuda, B, C, T, n, m, d, ta, pool, dtype):
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     for name, g, w in zip(("dEu", "dEi", "deu", "dei", "dWr"), got, want):
         assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert torch.isfinite(g).all(), name
         scale = max(w.float().abs().max().item(), 1.0)
         torch.testing.assert_close(g.float(), w.float(), rtol=tol,
                                    atol=tol * scale, msg=name)
     assert (got[0][0, 0] == 0).all() and (got[1][0, :, T - 1] == 0).all()
+    again = tpair.cross_coattn_pair_bwd(*args, *grads, pool=pool,
+                                        target_aware=ta)
+    assert torch.equal(again[4], got[4])     # dWr is the same run to run
 
 
 @pytest.mark.parametrize("pool", ["mean", "max"])
