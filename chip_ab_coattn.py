@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """The co-attention kernels of two checkouts of the port, in turns, on one
-card: the candidates forward (`cross_coattn_cand`) and the shared
+card: the candidates forward (`cross_coattn_cand`), the per-pair forward
+with the max and the mean pool (`cross_coattn_pair`), and the shared
 backward, for the sum pool (`cross_coattn_cand_bwd`) and the mean pool
 (`cross_coattn_pair_bwd`).
 
@@ -10,7 +11,7 @@ Each DIR is a checkout of the repo (for example the parent commit unpacked
 with `git archive` next to the change). Every run is a fresh process that
 imports that checkout's `chip_smoke.py` and kernel wrappers, builds its
 kernels, and times them in bf16 and f32 on inputs made by that checkout's
-`chip_smoke._cand_inputs` from seed 0. The forward runs at each of
+`chip_smoke._cand_inputs` from seed 0. The forwards run at each of
 FWD_SHAPES: the shapes `score` (B=1, C=256), `score_batch` (B=16, C=4096
 and one user at C=4096), eval (B=512 and 256, C=101), training (B=4096,
 C=2), a ragged B and configs3's own d=16 give it. The backwards run at
@@ -26,10 +27,11 @@ and so on.
 
 The last line is a JSON object: the card's name and power limit, and for
 every kernel, shape and timing each side's times (ms) in run order, their
-medians, and the ratio of A's median to B's. The forward's keys read
-"B=.. C=.. <dtype> <timing>", the backwards' "cand_bwd sum B=.. ..." and
-"pair_bwd mean B=.. ...". Exits non-zero if any run fails. About 45 s a
-run on an H100.
+medians, and the ratio of A's median to B's. The candidates forward's
+keys read "B=.. C=.. <dtype> <timing>", the per-pair forward's
+"pair_fwd <pool> B=.. C=.. <dtype> <timing>", the backwards' "cand_bwd
+sum B=.. ..." and "pair_bwd mean B=.. ...". Exits non-zero if any run
+fails. About a minute a run on an H100.
 """
 
 from __future__ import annotations
@@ -55,7 +57,8 @@ RUN = """
 import json, sys, torch
 sys.path.insert(0, '.')
 import chip_smoke as cs
-from score_tpu_torch.kernels.coattn import cross_coattn_pair_bwd
+from score_tpu_torch.kernels.coattn import (cross_coattn_pair,
+                                            cross_coattn_pair_bwd)
 from score_tpu_torch.kernels.coattn_cand import (cross_coattn_cand,
                                                  cross_coattn_cand_bwd)
 ITERS, REPLAYS = %d, %d
@@ -63,7 +66,7 @@ dev = torch.device('cuda')
 gen = torch.Generator(device=dev).manual_seed(0)
 
 
-def graph_ms(fn):
+def graph_ms(fn):   # chip_smoke.graph_ms, which older checkouts lack
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):      # warm up off the default stream
@@ -98,6 +101,9 @@ for kw in %r:
         key = ' '.join(f'{k}={v}' for k, v in kw.items()) + ' ' + str(
             dtype)[6:]
         time_both(key, lambda: cross_coattn_cand(*args))
+        for pool in ('max', 'mean'):
+            time_both(f'pair_fwd {pool} ' + key, lambda: cross_coattn_pair(
+                *args, pool=pool, target_aware=True))
         del args
         torch.cuda.empty_cache()
 for kw in %r:

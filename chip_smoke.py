@@ -10,7 +10,9 @@ fails or no CUDA device is present.
 1. Device: the card's name and power limit, the CUDA versions, and the
    build of every kernel under score_tpu_torch/csrc (one nvcc per source,
    all at once, sm_90a), with ptxas's register and spill counts, and a
-   line for each instance of the shared co-attention backward.
+   line for each instance of the per-pair forward (csrc/coattn_pair.cu's
+   instances of the kernel in csrc/coattn_cand.cuh) and of the shared
+   co-attention backward.
 2. Forward kernels against their plain PyTorch versions on the card, at
    the shapes serving (`score`'s 1 x 256 bucket, `score_batch`'s chunk),
    eval and training give them: the gather, the candidates-form
@@ -65,7 +67,8 @@ candidates kernels, the mean-pool run for the per-pair kernels), its
 largest error against the plain version, and its, the plain version's and
 the library call's time beside its bound (the candidates forward also
 gives its time and bound at the training shape, B=4096 C=2, where its
-launches are counted); the last line is
+launches are counted, and the per-pair forward its mean pool's there, by
+CUDA graph); the last line is
 {"ok": true, "device": {...}}. Every timing line carries the card's name
 and power limit.
 """
@@ -128,6 +131,31 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 50, replays: int = 5) -> float:
+    """Mean device time of fn() over `iters` calls captured in one CUDA
+    graph and replayed `replays` times: the host's launch work left out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):      # warm up off the default stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * iters)
+
+
 def bound(nbytes: float, flops: float) -> dict:
     """The least time the card could take: compulsory bytes at the HBM
     rate or f32 operations at the peak rate, whichever is longer."""
@@ -145,12 +173,33 @@ def nbytes(*ts) -> int:
 
 _BWD_INSTANCE = re.compile(
     r"coattn_bwd_kernelI(f|13__nv_bfloat16)Li(\d+)ELb([01])ELi(\d+)E")
+_FWD_INSTANCE = re.compile(
+    r"cand_fwd_kernelI(f|13__nv_bfloat16)Lb([01])ELb([01])ELi(\d)ELi(\d+)E")
 
 
-def bwd_usage(ptxas_log: str) -> list:
-    """Registers and spill bytes of each instance of the shared co-attention
-    backward in an `nvcc -Xptxas -v` log, as (instance, registers, spill
-    stores, spill loads)."""
+def _bwd_name(inst) -> str:
+    dtype = "f32" if inst.group(1) == "f" else "bf16"
+    pool = "mean" if inst.group(3) == "1" else "sum"
+    width = "any d" if inst.group(4) == "0" else f"d={inst.group(4)}"
+    return f"coattn_bwd_kernel<{dtype}, MAXK={inst.group(2)}, {pool}, {width}>"
+
+
+def _fwd_name(inst) -> str:
+    dtype = "f32" if inst.group(1) == "f" else "bf16"
+    path = "16-byte" if inst.group(2) == "1" else "scalar"
+    pool = ("sum", "mean", "max")[int(inst.group(4))]
+    if pool == "max":
+        what = f"n, m <= {inst.group(5)}"
+    else:
+        what = "EuW staged" if inst.group(3) == "1" else "v per unit"
+    return f"cand_fwd_kernel<{dtype}, {path}, {pool}, {what}>"
+
+
+def kernel_usage(ptxas_log: str, pattern, describe) -> list:
+    """Registers and spill bytes of each kernel instance in an `nvcc -Xptxas
+    -v` log whose mangled name matches `pattern` (the shared co-attention
+    backward's or forward's), as (describe(match), registers, spill stores,
+    spill loads)."""
     usage, name, spills = [], None, (None, None)
     for line in ptxas_log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
@@ -162,13 +211,9 @@ def bwd_usage(ptxas_log: str) -> list:
         if m:
             spills = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
-        inst = _BWD_INSTANCE.search(name or "")
+        inst = pattern.search(name or "")
         if m and inst:
-            dtype = "f32" if inst.group(1) == "f" else "bf16"
-            pool = "mean" if inst.group(3) == "1" else "sum"
-            width = "any d" if inst.group(4) == "0" else f"d={inst.group(4)}"
-            usage.append((f"coattn_bwd_kernel<{dtype}, MAXK={inst.group(2)}"
-                          f", {pool}, {width}>", int(m.group(1)), *spills))
+            usage.append((describe(inst), int(m.group(1)), *spills))
             name, spills = None, (None, None)
     return usage
 
@@ -190,14 +235,16 @@ def phase_device(card: str) -> None:
         for line in out.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"[device]   {line.strip()}")
-    for name in ("coattn_cand_bwd", "coattn_pair_bwd"):
+    for name, pattern, describe in (
+            ("coattn_pair", _FWD_INSTANCE, _fwd_name),
+            ("coattn_cand_bwd", _BWD_INSTANCE, _bwd_name),
+            ("coattn_pair_bwd", _BWD_INSTANCE, _bwd_name)):
         if name not in _build.build_log:
             log(f"[device] {name}: built before this run, no ptxas log")
             continue
-        usage = bwd_usage(_build.build_log[name][1])
+        usage = kernel_usage(_build.build_log[name][1], pattern, describe)
         if not usage:
-            raise AssertionError(f"no backward instance in {name}'s ptxas "
-                                 f"log")
+            raise AssertionError(f"no kernel instance in {name}'s ptxas log")
         for inst, regs, stores, loads in usage:
             log(f"[device] {name}: {inst}: {regs} registers, spill stores "
                 f"{stores} B, spill loads {loads} B")
@@ -370,7 +417,7 @@ def phase_coattn_pair(card: str, dev, gen) -> dict:
         ("ragged", dict(B=37, C=101), (torch.float32,)),
         ("configs3 d", dict(B=64, C=101, d=16), (torch.float32,))]
     worst = 0.0
-    line = None
+    line = train = None
     for label, kw, dtypes in cases:
         pools = ("max", "mean") + (("sum",) if label in ("serving",
                                                        "training") else ())
@@ -429,9 +476,24 @@ def phase_coattn_pair(card: str, dev, gen) -> dict:
                             and dtype == torch.bfloat16):
                         line = dict(ms=ms, plain_ms=plain_ms,
                                     library_ms=None, **b)
+                    if (label == "training" and pool == "mean"
+                            and dtype == torch.bfloat16):
+                        # the shape and pool of the launches the line
+                        # counts, the device alone (stream times at this
+                        # size are the host's)
+                        gms = graph_ms(lambda: cross_coattn_pair(
+                            *args, pool=pool, target_aware=ta))
+                        log(f"[coattn_pair] {label} {kw} {pool} "
+                            f"{str(dtype)[6:]}: by CUDA graph {gms:.4f} ms, "
+                            f"bound {b['bound_ms']:.4f} ms [{card}]")
+                        train = dict(training_shape_ms=gms,
+                                     training_shape_timing="cuda graph",
+                                     training_shape_bound_ms=b["bound_ms"])
                     del args, got, want
     torch.cuda.empty_cache()
-    return dict(max_abs_err=worst, **line)
+    # the serving shape's times (max pool), and beside them the training
+    # shape's by graph (mean pool), at which the launches are counted
+    return dict(max_abs_err=worst, **line, **train)
 
 
 # --- phase 2b: backward kernels --------------------------------------------

@@ -1,9 +1,9 @@
-// Device helpers shared by the co-attention kernels (coattn_cand.cu,
-// coattn_pair.cu and the backward in coattn_bwd.cuh). The warp helpers lay
+// Device helpers shared by the co-attention kernels (the forward in
+// coattn_cand.cuh, the backward in coattn_bwd.cuh). The warp helpers lay
 // a [d]-vector across a warp, lane l holding component l (d <= 32), as
-// coattn_pair.cu and the backward do; coattn_cand.cu takes only the
-// conversions and kNeg. The reductions take a width W (32 or 16): with 16,
-// each half-warp reduces on its own.
+// the backward does; the forward takes the conversions, kNeg and `fold`.
+// The reductions take a width W (32 or 16): with 16, each half-warp
+// reduces on its own.
 
 #pragma once
 
@@ -87,25 +87,6 @@ __device__ __forceinline__ float transpose_sum(float* v, int lane) {
   }
   return v[0];
 }
-
-// Online masked softmax-weighted sum over rows x_j with scores s_j: after
-// all valid rows, result() is sum_j softmax(s)_j x_j. The same value as the
-// reference's where(-1e9) / subtract-max / exp * mask / divide by
-// max(sum, 1e-20); with no valid row, acc = sum = 0 and the result is 0.
-struct OnlineSoftmax {
-  float mx = kNeg, sum = 0.f, acc = 0.f;
-  __device__ __forceinline__ void add(float s, float x) {
-    const float m_new = fmaxf(mx, s);
-    const float r = __expf(mx - m_new);  // rescales what came before
-    const float e = __expf(s - m_new);
-    sum = sum * r + e;
-    acc = acc * r + e * x;
-    mx = m_new;
-  }
-  __device__ __forceinline__ float result() const {
-    return acc * (1.0f / fmaxf(sum, 1e-20f));
-  }
-};
 
 // Masked softmax across the warp (W = 32) or each half-warp (W = 16):
 // lane j holds score s of row j and whether row j is valid. As the

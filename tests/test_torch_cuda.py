@@ -218,19 +218,67 @@ def test_cand_bwd_kernel(cuda, B, C, T, n, m, d, ta, dtype):
     assert torch.equal(again[4], got[4])     # dWr is the same run to run
 
 
-@pytest.mark.parametrize("B,C,T,n,m,d,ta",
-                         [(4, 2, 3, 5, 6, 8, True),
-                          (4, 2, 3, 5, 6, 8, False),
-                          (3, 4, 2, 4, 3, 16, True),
-                          (5, 1, 4, 6, 5, 8, True),
-                          (3, 101, 9, 10, 10, 32, True),   # eval's 1 + 100
-                          (2, 5, 2, 32, 17, 32, True),     # MAXK 32
-                          (2, 3, 2, 12, 16, 32, False)])   # MAXK 16
+# (B, C, T, n, m, d, target_aware, variant) of the per-pair forward. Its
+# kernel takes the sum and mean pools on 4-lane groups and the max pool on
+# m16n8k16 (bf16) or m16n8k8 (tf32) tiles of 16 or 32 rows and columns;
+# rows of d * itemsize % 16 != 0 and unaligned views take its scalar path.
+# Variants: "ties" repeats one user row and one item row everywhere (exact
+# ties in every row and column max), "one-row" / "one-column" leave one
+# valid user row / item row in each unit, "masked" masks every user row of
+# the last b and every item row of its last candidate (exact zeros),
+# "unaligned" offsets the row inputs' views by one element.
+PAIR_CASES = [
+    (4, 2, 3, 5, 6, 8, True, ""),
+    (4, 2, 3, 5, 6, 8, False, ""),
+    (3, 4, 2, 4, 3, 16, True, ""),
+    (5, 1, 4, 6, 5, 8, True, ""),
+    (3, 101, 9, 10, 10, 32, True, ""),      # eval's 1 + 100
+    (2, 5, 2, 32, 17, 32, True, ""),        # MAXK 32
+    (2, 3, 2, 12, 16, 32, False, ""),       # MAXK 16
+    (4, 3, 3, 10, 10, 32, True, "ties"),
+    (4, 3, 3, 10, 10, 32, True, "one-row"),
+    (4, 3, 3, 10, 10, 32, False, "one-column"),
+    (5, 3, 2, 10, 10, 32, True, "masked"),
+    (20, 5, 3, 10, 10, 7, True, ""),         # 14 / 28 B rows
+    (8, 45, 3, 10, 10, 32, True, "unaligned"),
+    (6, 4, 2, 11, 11, 32, True, ""),
+    (4, 3, 2, 16, 16, 32, True, ""),
+    (4, 3, 2, 17, 9, 32, True, ""),          # 2 m-tiles
+    (3, 2, 2, 9, 17, 32, False, ""),         # 4 n-tiles
+    (2, 3, 2, 32, 32, 32, True, ""),
+    (1, 256, 9, 10, 10, 32, True, ""),       # score(u, 101)'s bucket
+    (7, 1, 4, 10, 10, 32, True, ""),         # C = 1
+    (1, 1, 3, 10, 10, 16, True, ""),
+]
+
+
+@pytest.mark.parametrize(
+    "B,C,T,n,m,d,ta,variant", PAIR_CASES,
+    ids=["-".join(map(str, c[:7])) + (f"-{c[7]}" if c[7] else "")
+         for c in PAIR_CASES])
 @pytest.mark.parametrize("pool", ["sum", "mean", "max"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_pair_kernel(cuda, B, C, T, n, m, d, ta, pool, dtype):
+def test_pair_kernel(cuda, B, C, T, n, m, d, ta, variant, pool, dtype):
     args = _cand_inputs(np.random.default_rng(C + n), B, C, T, n, m, d,
                         dtype, cuda)
+    if variant == "ties":
+        args[0][:] = args[0][:, :, :1]
+        args[1][:] = args[1][:, :, :, :1]
+    elif variant == "one-row":
+        args[2][:] = False
+        args[2][..., 2] = True
+    elif variant == "one-column":
+        args[3][:] = False
+        args[3][..., 3] = True
+    elif variant == "masked":
+        args[2][B - 1] = False
+        args[3][B - 1, C - 1] = False
+    elif variant == "unaligned":
+        args = [_unaligned(a) if i in (0, 1, 5, 6) else a
+                for i, a in enumerate(args)]
+        assert all(args[i].data_ptr() % 16 for i in (0, 1, 5, 6))
+    args[2][0, 0] = False            # _cand_inputs' all-masked slots
+    args[3][0, :, T - 1] = False
     before = tpair.cross_coattn_pair.launches
     got = tpair.cross_coattn_pair(*args, pool=pool, target_aware=ta)
     torch.cuda.synchronize()
@@ -239,8 +287,11 @@ def test_pair_kernel(cuda, B, C, T, n, m, d, ta, pool, dtype):
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == (B, C, T, d)
+        assert torch.isfinite(g).all()
         torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
     assert (got[0][0, :, 0] == 0).all() and (got[1][0, :, T - 1] == 0).all()
+    if variant == "masked":
+        assert (got[0][B - 1] == 0).all() and (got[1][B - 1, C - 1] == 0).all()
 
 
 @pytest.mark.parametrize("B,C,T,n,m,d,ta",
