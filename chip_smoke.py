@@ -60,6 +60,18 @@ fails or no CUDA device is present.
    candidates: targets/s and the metrics; and in f32 on 512 targets, the
    card's metrics against the CPU's (ranking metrics 1e-4, AUC 1e-3, as
    tests/test_torch_eval.py holds the port to the JAX package).
+6. The training driver, checkpoints and serving from them, sum pool: the
+   bench dataset saved to a temporary directory; the CLI (`python -m
+   score_tpu_torch.train configs3 <dir> ...` at the bench width, one epoch,
+   val every 100 steps on 8192 targets, checkpoints on) in a subprocess,
+   which must exit 0 and print its test line; then `train()` in this
+   process for two epochs on the same checkpoints, which must resume at
+   the end of the first (launches counted), and write finite val rows; a
+   checkpoint's save and restore times and size;
+   `ScoringService.from_checkpoint` of `best` scoring 4 x 256 bit-equal to
+   a service built from the weights `train()` returned; and `topk_batch`
+   for 16 users giving the score multisets of 16 `topk` calls. Steps/s,
+   time per val, time per user, and the val and test AUC.
 
 The line before the last lists each kernel with its launches in the
 training run of its path (the sum-pool run for the gather, scatter-add and
@@ -77,11 +89,14 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1048,6 +1063,152 @@ def phase_eval(card: str, ds, dev) -> None:
     torch.cuda.empty_cache()
 
 
+# --- phase 6: the training driver, checkpoints, serving from them ----------
+
+# the CLI's overrides: configs3 as bench.py trains it, one epoch
+DRIVER_ARGS = ("model.embed_dim=32", "model.hidden_dim=64",
+               "model.mlp_dims=128,64", "model.compute_dtype=bfloat16",
+               "data.train_neg_mode=inbatch_iw", f"train.batch_size={BATCH}",
+               "train.table_update_every=2", "train.table_lr_boost=2.0",
+               "train.num_epochs=1", "train.eval_every_steps=100",
+               f"train.eval_max_targets={EVAL_TARGETS}")
+DRIVER_TIMEOUT_S = 300
+TOPK_USERS = 16
+
+
+def phase_driver(card: str, ds, dev) -> None:
+    from score_tpu_torch.checkpoint import CheckpointManager, apply_restore
+    from score_tpu_torch.config import apply_overrides, configs3
+    from score_tpu_torch.data.schema import save_dataset
+    from score_tpu_torch.serve import ScoringService
+    from score_tpu_torch.train import init_state, train
+    spe = len(ds.train) // BATCH
+    with tempfile.TemporaryDirectory() as work:
+        data_dir, ck = os.path.join(work, "data"), os.path.join(work, "ck")
+        t0 = time.perf_counter()
+        save_dataset(ds, data_dir, compress=False)
+        log(f"[driver] bench dataset saved (uncompressed) in "
+            f"{time.perf_counter() - t0:.2f} s")
+
+        # the CLI, one epoch, in its own process
+        args = [*DRIVER_ARGS, f"train.checkpoint_dir={ck}"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "score_tpu_torch.train", "configs3",
+             data_dir, *args], cwd=Path(__file__).resolve().parent,
+            capture_output=True, text=True, timeout=DRIVER_TIMEOUT_S,
+            env=dict(os.environ, PYTHONUNBUFFERED="1"))
+        cli_s = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            log(f"[driver] cli: {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"the CLI exited {proc.returncode}:\n"
+                                 f"{proc.stderr[-4000:]}")
+        lines = proc.stdout.splitlines()
+        if sum(line.startswith("test: auc") for line in lines) != 1:
+            raise AssertionError("the CLI printed no test line")
+        cli_val = [float(line.split()[5]) for line in lines
+                   if line.startswith("  val @ step")]
+        log(f"[driver] cli: exit 0 in {cli_s:.1f} s of wall clock, "
+            f"{spe} steps; val auc by step {cli_val} [{card}]")
+
+        # the second epoch in this process, resuming from the CLI's latest
+        cfg = apply_overrides(configs3(), dict(
+            a.split("=", 1) for a in (*args, "train.num_epochs=2")))
+        rows_path = os.path.join(work, "log.jsonl")
+        fns = reset_counts()
+        out = train(cfg, ds, log_path=rows_path, device=dev)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in fns.items()}
+        log(f"[driver] launches in the resumed run: {launches}")
+        check_launches("driver, sum pool", launches, TRAIN_KERNELS["sum"])
+        tm = out["timing"]
+        if tm["start_step"] != spe or out["steps_run"] != 2 * spe:
+            raise AssertionError(f"resumed at {tm['start_step']} and ran "
+                                 f"to {out['steps_run']}; expected {spe} "
+                                 f"and {2 * spe}")
+        rows = [json.loads(line) for line in open(rows_path)]
+        vals = [r for r in rows if r["split"] == "val"]
+        if (not vals or any(r["step"] <= spe for r in vals)
+                or [r["split"] for r in rows][-1] != "test"
+                or not all(np.isfinite(v) for r in rows for k, v in r.items()
+                           if k not in ("step", "split"))):
+            raise AssertionError(f"bad JSONL rows: {rows}")
+        log(f"[driver] resumed at step {tm['start_step']}, ran to "
+            f"{out['steps_run']}: {tm['steps']} steps in "
+            f"{tm['train_s']:.3f} s, {tm['steps'] / tm['train_s']:.2f} "
+            f"steps/s ({BATCH * tm['steps'] / tm['train_s']:.0f} "
+            f"examples/s); {len(tm['val_s'])} vals of {EVAL_TARGETS} "
+            f"targets, {statistics.mean(tm['val_s']):.3f} s each "
+            f"({[round(v, 3) for v in tm['val_s']]}); test eval of "
+            f"{len(ds.test)} targets {tm['test_s']:.3f} s [{card}]")
+        log(f"[driver] val auc by step "
+            f"{[(r['step'], round(r['auc'], 4)) for r in vals]}; best "
+            f"{out['best_val_auc']:.4f} at step {out['best_step']}; test "
+            f"{json.dumps({k: round(v, 4) for k, v in out['test'].items()})}")
+
+        # one checkpoint's save and restore
+        state = init_state(cfg, ds.num_users, ds.num_items,
+                           {k: v.clone() for k, v in out["params"].items()},
+                           device=dev)
+        mgr = CheckpointManager(os.path.join(work, "timed"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save("latest", state, (1, 0), 0.5, 2 * spe)
+        snap_s = time.perf_counter() - t0
+        mgr.wait()
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        apply_restore(state, mgr.restore("latest", state))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        size = os.path.getsize(mgr.path("latest"))
+        log(f"[driver] checkpoint {size} bytes: save {save_s:.3f} s "
+            f"({snap_s:.3f} s until the step may go on), restore "
+            f"{restore_s:.3f} s [{card}]")
+        del state
+
+        # serving the best checkpoint
+        fns = reset_counts()
+        svc = ScoringService.from_checkpoint(cfg, ds, ck, which="best",
+                                             device=dev)
+        ref = ScoringService(cfg, ds, out["params"], device=dev)
+        rng = np.random.default_rng(SEED + 6)
+        users4 = ds.test.user[:4].astype(np.int32)
+        items4 = rng.integers(1, ds.num_items + 1, (4, 256)).astype(np.int32)
+        got, want = svc.score_batch(users4, items4), ref.score_batch(
+            users4, items4)
+        if not np.array_equal(got, want):
+            raise AssertionError(
+                f"from_checkpoint scores differ from train()'s weights': "
+                f"max |diff| {np.abs(got - want).max():.3e}")
+        log("[driver] from_checkpoint('best') 4x256: bit-equal to a "
+            "service on train()'s returned weights")
+        users = np.unique(ds.test.user)[:TOPK_USERS].astype(np.int32)
+        svc.topk_batch(users[:2], k=10)                  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bi, bs = svc.topk_batch(users, k=10)
+        batch_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        singles = [svc.topk(int(u), k=10) for u in users]
+        single_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in fns.items()}
+        check_launches("driver serving, sum pool", launches,
+                       SERVE_KERNELS["sum"])
+        for r, (ti, ts) in enumerate(singles):
+            if not (np.array_equal(np.sort(bs[r]), np.sort(ts))
+                    and (bi[r] >= 1).all() and np.all(np.diff(bs[r]) <= 0)):
+                raise AssertionError(f"topk_batch user {users[r]}: "
+                                     f"{bs[r]} vs topk {ts}")
+        log(f"[driver] topk_batch of {TOPK_USERS} users over "
+            f"{ds.num_items} items: score multisets equal to {TOPK_USERS} "
+            f"topk calls; {batch_s:.4f} s, {batch_s / TOPK_USERS:.4f} s a "
+            f"user (topk: {single_s / TOPK_USERS:.4f} s a user) [{card}]")
+        del svc, ref
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA "
@@ -1074,6 +1235,7 @@ def main() -> int:
     for pool in ("sum", "mean", "max"):
         phase_training_vs_cpu(ds, pool)
     phase_eval(card, ds, dev)
+    phase_driver(card, ds, dev)
     kernels = [
         dict(name="gather_rows", route="cuda",
              source="score_tpu_torch/csrc/gather.cu",

@@ -107,10 +107,14 @@ class Dataset:
         return self.graph.num_items
 
 
-def save_dataset(ds: Dataset, out_dir: str) -> None:
+def save_dataset(ds: Dataset, out_dir: str, compress: bool = True) -> None:
+    """Write `ds` as load_dataset reads it. compress=False stores the arrays
+    uncompressed: larger files, and no zlib pass, which dominates the time
+    to save a large dataset."""
     os.makedirs(out_dir, exist_ok=True)
     g = ds.graph
-    np.savez_compressed(
+    savez = np.savez_compressed if compress else np.savez
+    savez(
         os.path.join(out_dir, "graph.npz"),
         u2i=g.u2i, u2i_cnt=g.u2i_cnt, i2u=g.i2u, i2u_cnt=g.i2u_cnt,
         u2i_indptr=g.u2i_indptr, u2i_indices=g.u2i_indices,
@@ -119,7 +123,7 @@ def save_dataset(ds: Dataset, out_dir: str) -> None:
         arrs = dict(user=t.user, item=t.item, slot=t.slot)
         if t.neg is not None:
             arrs["neg"] = t.neg
-        np.savez_compressed(os.path.join(out_dir, f"targets_{name}.npz"), **arrs)
+        savez(os.path.join(out_dir, f"targets_{name}.npz"), **arrs)
     meta = dict(ds.meta, num_users=g.num_users, num_items=g.num_items,
                 num_slots=g.num_slots)
     with open(os.path.join(out_dir, "meta.json"), "w") as f:

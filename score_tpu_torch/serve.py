@@ -1,11 +1,13 @@
 """Online scoring service over the configs3 model and the device graph.
 
 Counterpart of score_tpu/serve.py:ScoringService (score, score_batch,
-topk):
+topk, topk_batch, from_checkpoint):
 
     svc = ScoringService(cfg, dataset, state_dict, device="cuda")
+    svc = ScoringService.from_checkpoint(cfg, dataset, ckpt_dir)   # or
     scores = svc.score(user_id, item_ids)          # [len(item_ids)]
     items, scores = svc.topk(user_id, k=10)        # full catalogue
+    items, scores = svc.topk_batch(user_ids, k=10) # [R, k] each
 
 Request shapes are padded to fixed buckets, as in the reference. Candidate
 lists wider than `candidate_chunk` are scored in blocks of that width, all
@@ -60,6 +62,23 @@ class ScoringService:
         # default scoring slot: one past the last, so the whole history is
         # visible
         self.slot = ds.graph.num_slots if slot is None else slot
+        # scores `topk_batch` may hold on the device before it merges them:
+        # the reference's 64 dispatches of 16 rows at R = 16, at any R
+        self.topk_pending_bytes = 64 * 16 * self.candidate_chunk * 4
+
+    @classmethod
+    def from_checkpoint(cls, cfg: Config, ds: Dataset, ckpt_dir: str,
+                        which: str = "best", device="cuda",
+                        **service_kw) -> "ScoringService":
+        """Serve checkpoint `which` of a `train` run (its f32 weights, read
+        straight onto `device`). `service_kw` passes on slot,
+        candidate_chunk and topk_grid_rows."""
+        from .checkpoint import CheckpointManager
+        restored = CheckpointManager(ckpt_dir).restore(which,
+                                                      torch.device(device))
+        if restored is None:
+            raise FileNotFoundError(f"no '{which}' checkpoint in {ckpt_dir}")
+        return cls(cfg, ds, restored["params"], device=device, **service_kw)
 
     def score(self, user_id: int, item_ids: Sequence[int]) -> np.ndarray:
         """Pointwise scores for one user against a candidate list; the user
@@ -84,6 +103,13 @@ class ScoringService:
                           for a in (pu, pi, slots)))
         return self.model.score_candidates(mb)
 
+    def _check_ids(self, users: np.ndarray, items: np.ndarray) -> None:
+        # ids index device tables with no bounds check: refuse bad ones here
+        for name, ids, hi in (("user", users, self.num_users),
+                              ("item", items, self.num_items)):
+            if ids.size and (ids.min() < 0 or ids.max() > hi):
+                raise ValueError(f"{name} ids must lie in [0, {hi}]")
+
     def score_batch(self, user_ids: Sequence[int], item_ids) -> np.ndarray:
         """Scores for R independent requests: `user_ids` [R], `item_ids`
         [R, n] -> [R, n]. n > candidate_chunk splits into blocks of that
@@ -94,11 +120,7 @@ class ScoringService:
             raise ValueError(
                 f"item_ids must be [R, n] with R == len(user_ids); got "
                 f"{items.shape} vs R={users.size}")
-        # ids index device tables with no bounds check: refuse bad ones here
-        for name, ids, hi in (("user", users, self.num_users),
-                              ("item", items, self.num_items)):
-            if ids.size and (ids.min() < 0 or ids.max() > hi):
-                raise ValueError(f"{name} ids must lie in [0, {hi}]")
+        self._check_ids(users, items)
         r, n = items.shape
         chunk = self.candidate_chunk
         outs = [(self._dispatch(users, items[:, lo:lo + chunk]),
@@ -137,3 +159,69 @@ class ScoringService:
         part = np.argpartition(-scores, k - 1)[:k]
         order = part[np.argsort(-scores[part])]
         return candidates[order], scores[order]
+
+    def topk_batch(self, user_ids: Sequence[int], k: int = 10,
+                   candidates: Optional[Sequence[int]] = None
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+        """Top-k for R users over one shared candidate list (default: the
+        full catalogue): ([R, k] items, [R, k] scores), each row best
+        first.
+
+        Each dispatch holds g = max(1, topk_grid_rows // R) consecutive
+        candidate chunks for every user (rows are (user, chunk) pairs), so
+        the batch axis stays full at small R. Dispatches run ahead and are
+        merged into a running top-k per user once the scores waiting on
+        the device reach `topk_pending_bytes`, so what is held stays
+        bounded at any R and catalogue size. Grid pads (item 0 past the
+        last candidate) are set to -inf before any merge."""
+        users = np.asarray(user_ids, np.int32)
+        r = users.size
+        if candidates is None:
+            candidates = np.arange(1, self.num_items + 1, dtype=np.int32)
+        else:
+            candidates = np.asarray(candidates, np.int32)
+        self._check_ids(users, candidates)
+        n = candidates.size
+        if n == 0 or k <= 0 or r == 0:
+            return (np.empty((r, 0), np.int32), np.empty((r, 0), np.float32))
+        k = min(k, n)
+        chunk = self.candidate_chunk
+        g = max(1, self.topk_grid_rows // r)     # chunks a user a dispatch
+        width = g * chunk                        # candidates a dispatch
+        grid = np.concatenate([candidates, np.zeros((-n) % width, np.int32)]
+                              ).reshape(-1, g, chunk)
+        urow = np.repeat(users, g)               # [r * g], user-major
+        best_i = np.empty((r, 0), np.int32)
+        best_s = np.empty((r, 0), np.float32)
+
+        def merge(pending):
+            nonlocal best_i, best_s
+            bi, bs = [best_i], [best_s]
+            for out, j in pending:
+                s = out.float().cpu().numpy()[:r * g, :chunk].reshape(
+                    r, width)
+                s[:, min(max(n - j * width, 0), width):] = -np.inf
+                bi.append(np.broadcast_to(grid[j].reshape(-1), (r, width)))
+                bs.append(s)
+            all_i = np.concatenate(bi, axis=1)
+            all_s = np.concatenate(bs, axis=1)
+            kk = min(k, all_s.shape[1])
+            part = np.argpartition(-all_s, kk - 1, axis=1)[:, :kk]
+            best_i = np.take_along_axis(all_i, part, axis=1)
+            best_s = np.take_along_axis(all_s, part, axis=1)
+
+        pending, held = [], 0
+        for j in range(grid.shape[0]):
+            irow = np.ascontiguousarray(
+                np.broadcast_to(grid[j][None], (r, g, chunk))
+                .reshape(r * g, chunk))
+            pending.append((self._dispatch(urow, irow), j))
+            held += pending[-1][0].numel() * pending[-1][0].element_size()
+            if held >= self.topk_pending_bytes:
+                merge(pending)
+                pending, held = [], 0
+        if pending:
+            merge(pending)
+        order = np.argsort(-best_s, axis=1)
+        return (np.take_along_axis(best_i, order, axis=1),
+                np.take_along_axis(best_s, order, axis=1))

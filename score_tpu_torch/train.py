@@ -1,11 +1,16 @@
-"""Training: the configs3 train step, a K-step loop, and streaming eval.
+"""Training: the configs3 train step, a K-step loop, streaming eval, and
+the train/eval driver with checkpoints and its CLI.
 
 Counterpart of score_tpu/train.py (make_optimizer, item_importance_weights,
 _table_l2, the train step of _make_train_step_fn with in-batch negatives
-and stride-K table updates, the train loop, make_eval_step, _eval_accum
-and evaluate) for the path `bench.py` trains: in-batch
+and stride-K table updates, the train loop, make_eval_step, _eval_accum,
+evaluate, train and main) for the path `bench.py` trains: in-batch
 importance-weighted negatives, Adam at a constant learning rate,
 `table_update_every` and `table_lr_boost`; any co-attention pool:
+
+    out = train(cfg, ds, device="cuda")    # epochs, val, early stop, test
+
+or step by step:
 
     state = init_state(cfg, ds.num_users, ds.num_items, state_dict)
     graph = device_graph(ds.graph, state.device)
@@ -14,32 +19,41 @@ importance-weighted negatives, Adam at a constant learning rate,
     state, metrics = train_step(state, graph, batch, neg_iw=neg_iw)
     metrics = evaluate(make_eval_step(state.model), graph, ds.val)
 
+CLI:  python -m score_tpu_torch.train <preset> [data_dir] [--device cpu]
+          [section.key=value ...]
+
 Everything runs on `device`, the CUDA card unless the caller asks for
 another. The parameters and Adam moments are updated in place. The step
 never waits for the device: metrics come back as device tensors.
 
 Left out, and refused where a config asks for them: uniform negatives,
 neighbour re-sampling, optimizers other than Adam, learning-rate
-schedules, scorer dropout, sharded layouts and non-f32 parameters; the
-`train()` driver, checkpoints and the CLI are not ported yet.
+schedules, scorer dropout, sharded layouts and non-f32 parameters.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import sys
+import tempfile
+import time
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .config import Config
-from .data.pipeline import eval_index_batches
-from .graph import DeviceGraph, gather_candidate_batch
+from .checkpoint import CheckpointManager, apply_restore
+from .config import PRESETS, Config, apply_overrides
+from .data.pipeline import TargetIterator, eval_index_batches
+from .data.schema import Dataset
+from .graph import DeviceGraph, device_graph, gather_candidate_batch
 from .metrics import (F16_BINS, auc, hist_auc, rank_sum_keys, ranking_sums,
                       score_hists)
 from .nn.model import ScoreModel, check_config
 from .nn.scorer import bce_loss
-from .params import cast_tables
+from .params import cast_tables, init_params
 
 
 def is_table(name: str) -> bool:
@@ -205,6 +219,16 @@ def draw_shifts(generator: torch.Generator, k: int, B: int) -> List[int]:
     return (torch.randperm(hi - 1, generator=generator)[:k] + 1).tolist()
 
 
+def step_shifts(seed: int, step: int, k: int, B: int) -> List[int]:
+    """The shifts `train` draws for step `step` by default: from a
+    generator seeded by (seed, step), the counterpart of the reference's
+    fold_in(PRNGKey(seed), step), so a resumed run draws the same shifts
+    with no generator state in its checkpoint."""
+    g = torch.Generator().manual_seed(((seed & 0xFFFFFFFF) << 32)
+                                      | (step & 0xFFFFFFFF))
+    return draw_shifts(g, k, B)
+
+
 def _as_device(x, device) -> torch.Tensor:
     x = torch.as_tensor(x)
     return x.to(device=device, dtype=torch.int32)
@@ -298,8 +322,9 @@ def make_eval_step(model: ScoreModel) -> Callable:
     [B, 1 + N], the positive first. It runs an inference copy of `model`
     (`eval_step.model`): a snapshot of every weight as it stands now, the
     tables cast once by `params.cast_tables` as serving casts them. In f32
-    and in bf16 alike, later training does not reach the copy, so make a
-    new step to evaluate the updated model."""
+    and in bf16 alike, later training does not reach the copy:
+    `eval_step.refresh(model_or_state_dict)` copies the current weights
+    into it (tables cast the same way), so one step serves a whole run."""
     em = ScoreModel(model.cfg, model.num_users, model.num_items)
     sd = cast_tables(model.state_dict(), model.cfg.compute_dtype)
     em.load_state_dict({k: v.detach().clone() for k, v in sd.items()},
@@ -313,7 +338,15 @@ def make_eval_step(model: ScoreModel) -> Callable:
                                     batch["slot"])
         return em.score_candidates(mb)
 
+    @torch.no_grad()
+    def refresh(source) -> None:
+        sd = (source.state_dict() if isinstance(source, torch.nn.Module)
+              else source)
+        for k, t in em.state_dict().items():
+            t.copy_(sd[k])
+
     eval_step.model = em
+    eval_step.refresh = refresh
     return eval_step
 
 
@@ -370,3 +403,261 @@ def evaluate(eval_step: Callable, graph: DeviceGraph, targets,
     out = {k: float(v / denom) for k, v in by_name.items()}
     out["auc"] = hist_auc(carry["hist_pos"], carry["hist_neg"])
     return out
+
+
+def _snapshot(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def _append_row(path: Optional[str], row: dict) -> None:
+    if path:
+        with open(path, "a") as f:
+            f.write(json.dumps(row) + "\n")
+
+
+def _stage_batches(it: TargetIterator, k: int, device
+                   ) -> List[Dict[str, torch.Tensor]]:
+    """The next k host batches as rows of one [k, B] device array per
+    column: one host-to-device copy a chunk, as the reference's
+    _stack_batches stages its fused loop's batches. (A copy from pageable
+    host memory waits for the device, so a copy a step would keep the host
+    from running ahead of it.)"""
+    host = [next(it) for _ in range(k)]
+    cols = {key: torch.from_numpy(np.stack([b[key] for b in host])).to(device)
+            for key in host[0]}
+    return [{key: v[j] for key, v in cols.items()} for j in range(k)]
+
+
+def _start_profiler(dev: torch.device):
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _export_trace(prof, directory: str, step: int) -> None:
+    prof.stop()
+    os.makedirs(directory, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(directory,
+                                          f"trace_step{step}.json"))
+
+
+def train(cfg: Config, ds: Dataset, verbose: bool = True,
+          log_path: Optional[str] = None, *, device="cuda",
+          parity_state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+          parity_shifts_fn: Optional[Callable[[int, int], List[int]]] = None
+          ) -> Dict:
+    """Epoch loop with periodic validation, early stop on val AUC, best
+    parameters kept, final test metrics: the reference's train(), its log
+    lines, JSONL rows and return dict, on `device`.
+
+    Weights start from params.init_params seeded by cfg.train.seed; the
+    steps run in chunks of up to 50 through `train_loop`, cut at every val
+    and log boundary, each step's in-batch shifts from `step_shifts`. Val
+    runs every min(eval_every_steps, steps_per_epoch) steps and at the
+    last, on eval_max_targets targets, through one resident eval step
+    refreshed with the current weights. With cfg.train.checkpoint_dir,
+    `latest` is saved at every val and `best` when val AUC rises, and a run
+    that finds `latest` resumes from it (weights, Adam, step, iterator
+    position and best val) and takes its best parameters from `best`.
+    With cfg.train.profile_dir, a torch.profiler window over steps 10-30
+    writes a Chrome trace there.
+
+    `parity_state_dict` and `parity_shifts_fn(step, B)` are for parity
+    tests only: the initial weights and each step's shifts in place of the
+    defaults (a test hands in the JAX package's init and draws).
+
+    Returns {best_val_auc, best_step, test, history, params, steps_run} as
+    the reference does (params: the best weights as a state_dict on
+    `device`), plus `timing`: this call's first step, its steps, and the
+    seconds spent training, in each val and in the test eval."""
+    tc = cfg.train
+    dev = torch.device(device)
+    graph = device_graph(ds.graph, dev)
+    it = TargetIterator(ds.train, tc.batch_size, seed=tc.seed)
+    if parity_state_dict is None:
+        sd = init_params(cfg, ds.num_users, ds.num_items,
+                         torch.Generator().manual_seed(tc.seed))
+    else:   # the state trains in place: leave the caller's tensors alone
+        sd = {k: v.clone() for k, v in parity_state_dict.items()}
+    state = init_state(cfg, ds.num_users, ds.num_items, sd, device=dev)
+    neg_iw = None
+    if cfg.data.train_neg_mode == "inbatch_iw":
+        neg_iw = torch.from_numpy(
+            item_importance_weights(ds.train, ds.num_items)).to(dev)
+    k_neg, B = cfg.data.num_train_neg, tc.batch_size
+    shifts_fn = parity_shifts_fn or (
+        lambda s, b: step_shifts(tc.seed, s, k_neg, b))
+    eval_step = make_eval_step(state.model)
+
+    steps_per_epoch = it.steps_per_epoch
+    total_steps = steps_per_epoch * tc.num_epochs
+    eval_every = min(tc.eval_every_steps, max(steps_per_epoch, 1))
+    best = {"val_auc": -1.0, "step": -1, "params": None}
+    history = []
+    bad_evals = 0
+    t_start = time.time()
+
+    step = 0
+    ckpt = None
+    if tc.checkpoint_dir:
+        ckpt = CheckpointManager(tc.checkpoint_dir)
+        restored = ckpt.restore("latest", state)
+        if restored is not None:
+            apply_restore(state, restored)
+            it.set_state((restored["it_epoch"], restored["it_pos"]))
+            best["val_auc"] = float(restored["best_val"])
+            step = int(restored["step"])
+            kept = ckpt.restore("best", state)
+            if kept is not None:
+                best = {"val_auc": float(kept["best_val"]),
+                        "step": int(kept["step"]), "params": kept["params"]}
+            if verbose:
+                print(f"resumed from step {step} "
+                      f"(best val auc {best['val_auc']:.4f})", flush=True)
+    timing = {"start_step": step, "steps": 0, "train_s": 0.0, "val_s": [],
+              "test_s": 0.0}
+
+    def next_boundary(s):
+        nxt = [total_steps]
+        for period in (eval_every, tc.log_every_steps):
+            if period < 10 ** 8:
+                nxt.append((s // period + 1) * period)
+        return min(nxt)
+
+    prof, profiled = None, False
+    t_mark = time.perf_counter()
+    while step < total_steps:
+        chunk = min(next_boundary(step) - step, 50)
+        if chunk > 1 and not tc.profile_dir:
+            batches = _stage_batches(it, chunk, dev)
+            shifts = [shifts_fn(step + j, B) for j in range(chunk)]
+            state, ms = train_loop(state, graph, batches, shifts, neg_iw)
+            m = {"loss": ms["loss"][-1], "batch_auc": ms["batch_auc"][0]}
+            step += chunk
+        else:
+            state, m = train_step(state, graph, next(it),
+                                  shifts_fn(step, B), neg_iw)
+            step += 1
+        if tc.profile_dir:
+            # one window over steps 10..30: past the warm-up, short enough
+            # to read
+            if step >= 10 and prof is None and not profiled:
+                prof = _start_profiler(dev)
+            elif step >= 30 and prof is not None:
+                _export_trace(prof, tc.profile_dir, step)
+                prof, profiled = None, True
+        if verbose and step % tc.log_every_steps == 0:
+            print(f"step {step}/{total_steps} epoch {it.epoch} "
+                  f"loss {float(m['loss']):.4f} "
+                  f"batch_auc {float(m['batch_auc']):.4f}", flush=True)
+        if step % eval_every == 0 or step == total_steps:
+            loss = float(m["loss"])        # waits for the steps
+            timing["train_s"] += time.perf_counter() - t_mark
+            t0 = time.perf_counter()
+            eval_step.refresh(state.model)
+            val = evaluate(eval_step, graph, ds.val,
+                           max_targets=tc.eval_max_targets)
+            timing["val_s"].append(time.perf_counter() - t0)
+            rec = dict(step=step, split="val", **val, loss=loss,
+                       elapsed_s=round(time.time() - t_start, 2))
+            history.append(rec)
+            _append_row(log_path, rec)
+            if verbose:
+                print(f"  val @ step {step}: auc {val['auc']:.4f} "
+                      f"ndcg@10 {val['ndcg@10']:.4f} hr@10 {val['hr@10']:.4f}",
+                      flush=True)
+            if ckpt is not None:
+                ckpt.save("latest", state, it.get_state(),
+                          best["val_auc"], step)
+            stop = False
+            if val["auc"] > best["val_auc"]:
+                best = {"val_auc": val["auc"], "step": step,
+                        "params": _snapshot(state.model)}
+                bad_evals = 0
+                if ckpt is not None:
+                    ckpt.save("best", state, it.get_state(),
+                              val["auc"], step)
+            else:
+                bad_evals += 1
+                if bad_evals >= tc.early_stop_patience:
+                    if verbose:
+                        print(f"early stop at step {step} "
+                              f"(best val auc {best['val_auc']:.4f} "
+                              f"@ {best['step']})")
+                    stop = True
+            t_mark = time.perf_counter()
+            if stop:
+                break
+
+    if prof is not None:
+        _export_trace(prof, tc.profile_dir, step)
+    if ckpt is not None:
+        ckpt.wait()   # the last save is on disk before we may exit
+    timing["steps"] = step - timing["start_step"]
+    final_params = (best["params"] if best["params"] is not None
+                    else _snapshot(state.model))
+    t0 = time.perf_counter()
+    eval_step.refresh(final_params)
+    test = evaluate(eval_step, graph, ds.test)
+    timing["test_s"] = time.perf_counter() - t0
+    if verbose:
+        print(f"test: auc {test['auc']:.4f} ndcg@10 {test['ndcg@10']:.4f} "
+              f"hr@10 {test['hr@10']:.4f} mrr {test['mrr']:.4f}")
+        if timing["steps"]:
+            print(f"driver: {timing['steps']} steps in "
+                  f"{timing['train_s']:.3f} s "
+                  f"({timing['steps'] / timing['train_s']:.2f} steps/s), "
+                  f"{len(timing['val_s'])} vals in "
+                  f"{sum(timing['val_s']):.3f} s, test eval "
+                  f"{timing['test_s']:.3f} s", flush=True)
+    _append_row(log_path, dict(step=step, split="test", **test))
+    return dict(best_val_auc=best["val_auc"], best_step=best["step"],
+                test=test, history=history, params=final_params,
+                steps_run=step, timing=timing)
+
+
+def main(argv=None, device="cuda"):
+    """python -m score_tpu_torch.train <preset> [data_dir] [--device D]
+    [section.key=value ...]: load the dataset in data_dir (or prep it
+    there, from the raw log or a synthesized one) and train."""
+    args = list(sys.argv[1:] if argv is None else argv)
+    if "--device" in args:
+        i = args.index("--device")
+        device = args[i + 1] if i + 1 < len(args) else None
+        del args[i:i + 2]
+    if not args or args[0] not in PRESETS or device is None:
+        print(__doc__)
+        print("presets:", ", ".join(PRESETS))
+        raise SystemExit(2)
+    cfg = PRESETS[args[0]]()
+    data_dir = None
+    overrides = {}
+    for a in args[1:]:
+        if "=" in a:
+            key, v = a.split("=", 1)
+            overrides[key] = v
+        else:
+            data_dir = a
+    if overrides:
+        cfg = apply_overrides(cfg, overrides)
+    from .data.prep_datasets import PREP
+    from .data.schema import load_dataset
+    if data_dir and os.path.exists(os.path.join(data_dir, "meta.json")):
+        ds = load_dataset(data_dir)
+    else:
+        data_dir = data_dir or os.path.join(tempfile.gettempdir(),
+                                            "score_tpu_data",
+                                            cfg.data.dataset)
+        prep = PREP.get(cfg.data.dataset, PREP["taobao"])
+        ds = prep(data_dir, user_fanout=cfg.data.user_fanout,
+                  item_fanout=cfg.data.item_fanout,
+                  num_eval_neg=cfg.data.num_eval_neg)
+    train(cfg, ds, device=device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,11 +1,12 @@
-"""The port must run where JAX is not installed, as on the GPU host, and
-without the JAX package: in a fresh interpreter that refuses to import
-jax, flax, optax, orbax or anything of score_tpu, build a dataset with the
-port's own host layer, score one request and take two train steps on the
-CPU, with the sum pool and with the max pool, and evaluate the validation
-split. And the port's copies of that host layer (config presets, the
-synthetic generator, dataset prep, the batch iterator) give what the JAX
-package's give."""
+"""The port must run where JAX and pandas are not installed, as on the GPU
+host, and without the JAX package: in a fresh interpreter that refuses to
+import jax, flax, optax, orbax, pandas or anything of score_tpu, build a
+dataset with the port's own host layer, score one request and take two
+train steps on the CPU, with the sum pool and with the max pool, evaluate
+the validation split, and run the training CLI from a raw CSV log to its
+test line. And the port's copies of that host layer (config presets, the
+synthetic generator, dataset prep and its CSV reader, the batch iterator)
+give what the JAX package's give."""
 
 import dataclasses
 import os
@@ -19,17 +20,19 @@ import pytest
 from score_tpu import config as jconfig
 from score_tpu.data import pipeline as jpipeline
 from score_tpu.data import prep_common as jprep
+from score_tpu.data import prep_datasets as jprep_ds
 from score_tpu.data import synth as jsynth
 from score_tpu_torch import config as tconfig
 from score_tpu_torch.data import pipeline as tpipeline
 from score_tpu_torch.data import prep_common as tprep
+from score_tpu_torch.data import prep_datasets as tprep_ds
 from score_tpu_torch.data import synth as tsynth
 
 SCRIPT = r"""
 import importlib.abc
 import sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "score_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "pandas", "score_tpu")
 
 
 class Refuse(importlib.abc.MetaPathFinder):
@@ -85,21 +88,51 @@ for pool in ("sum", "max"):
     assert state.step == 2 and np.isfinite(losses).all(), losses
 metrics = evaluate(make_eval_step(state.model), graph, ds.val, batch_size=16)
 assert 0.0 <= metrics["auc"] <= 1.0 and "ndcg@10" in metrics, metrics
+
+# the CLI, from a raw log at its default path (under $TMPDIR) to the test line
+import contextlib
+import io
+import os
+import runpy
+import tempfile
+
+from score_tpu_torch.data.prep_datasets import default_raw_path
+
+synth.write_raw("taobao", default_raw_path("taobao"), num_users=100,
+                num_items=200, num_events=4000, num_slots=9, seed=0)
+work = tempfile.mkdtemp()
+sys.argv = ["score_tpu_torch.train", "configs3", os.path.join(work, "data"),
+            "--device", "cpu", "model.embed_dim=8", "model.hidden_dim=8",
+            "model.mlp_dims=16,8", "data.train_neg_mode=inbatch_iw",
+            "data.user_fanout=3", "data.item_fanout=3", "data.num_eval_neg=5",
+            "train.batch_size=32", "train.num_epochs=1",
+            "train.eval_every_steps=20", "train.eval_max_targets=64",
+            "train.checkpoint_dir=" + os.path.join(work, "ck")]
+cli = io.StringIO()
+with contextlib.redirect_stdout(cli):
+    runpy.run_module("score_tpu_torch.train", run_name="__main__")
+test_line = [l for l in cli.getvalue().splitlines() if l.startswith("test:")]
+assert len(test_line) == 1, cli.getvalue()
+assert os.path.exists(os.path.join(work, "ck", "best.pt"))
+
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not loaded, loaded
-print("SERVED", scores.tolist(), "TRAINED", losses, "EVALUATED", metrics)
+print("SERVED", scores.tolist(), "TRAINED", losses, "EVALUATED", metrics,
+      "CLI", test_line[0])
 """
 
 
-def test_port_serves_and_trains_without_jax():
+def test_port_serves_and_trains_without_jax(tmp_path):
     root = Path(__file__).resolve().parents[1]
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["TMPDIR"] = str(tmp_path)
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=root, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.startswith("SERVED"), proc.stdout
     assert "TRAINED" in proc.stdout, proc.stdout
     assert "EVALUATED" in proc.stdout, proc.stdout
+    assert "CLI test: auc" in proc.stdout, proc.stdout
 
 
 @pytest.mark.parametrize("name", ["configs0", "configs1", "configs2",
@@ -128,6 +161,16 @@ def test_data_copies_equal(mode):
               min_user=2, min_item=2, seed=2)
     tds, jds = tprep.build_dataset(*got, **kw), jprep.build_dataset(*want,
                                                                     **kw)
+    _assert_same_dataset(tds, jds)
+    ti, ji = (tpipeline.TargetIterator(tds.train, 16, seed=1),
+              jpipeline.TargetIterator(jds.train, 16, seed=1))
+    for _ in range(tds.train.user.size // 16 + 2):   # across an epoch
+        a, b = next(ti), next(ji)
+        for k in ("user", "item", "slot"):
+            np.testing.assert_array_equal(a[k], b[k])
+
+
+def _assert_same_dataset(tds, jds):
     for f in dataclasses.fields(jds.graph):
         np.testing.assert_array_equal(getattr(tds.graph, f.name),
                                       getattr(jds.graph, f.name),
@@ -139,9 +182,45 @@ def test_data_copies_equal(mode):
             assert (a is None) == (b is None), (split, f)
             if a is not None:
                 np.testing.assert_array_equal(a, b, err_msg=f"{split}.{f}")
-    ti, ji = (tpipeline.TargetIterator(tds.train, 16, seed=1),
-              jpipeline.TargetIterator(jds.train, 16, seed=1))
-    for _ in range(tds.train.user.size // 16 + 2):   # across an epoch
-        a, b = next(ti), next(ji)
-        for k in ("user", "item", "slot"):
-            np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_prep_taobao_equal(tmp_path):
+    """The port's and the reference's prep_taobao on one synthesized raw
+    log give equal datasets."""
+    raw = tsynth.write_raw("taobao", str(tmp_path / "raw.csv"),
+                           num_users=120, num_items=240, num_events=5000,
+                           num_slots=6, seed=3)
+    kw = dict(num_slots=6, user_fanout=4, item_fanout=3, min_user=3,
+              min_item=3, num_eval_neg=7, seed=1)
+    tds = tprep_ds.prep_taobao(str(tmp_path / "port"), raw_path=raw, **kw)
+    jds = jprep_ds.prep_taobao(str(tmp_path / "ref"), raw_path=raw, **kw)
+    _assert_same_dataset(tds, jds)
+    assert tds.meta == jds.meta
+
+
+@pytest.mark.parametrize("usecols", [(0, 1, 4), (4, 0, 2)])
+@pytest.mark.parametrize("newline", ["\n", "\r\n"], ids=["lf", "crlf"])
+def test_csv_reader_matches_pandas(tmp_path, usecols, newline):
+    """The port's numpy reader against the reference's pandas reader: a
+    header line, a non-numeric column outside `usecols` (Taobao's
+    behavior_type), negative values, a blank line; LF, or CRLF with no
+    final newline; blocks of 64 bytes (cut mid-line) and the default."""
+    rng = np.random.default_rng(len(newline) + usecols[0])
+    n = 500
+    behaviour = np.array(["pv", "buy", "cart", "fav"])[rng.integers(0, 4, n)]
+    rows = [f"{u},{i},{c},{b},{t}" for u, i, c, b, t in zip(
+        rng.integers(0, 10 ** 6, n), rng.integers(0, 10 ** 9, n),
+        rng.integers(-50, 50, n), behaviour,
+        rng.integers(1_500_000_000, 1_600_000_000, n))]
+    lines = (["user_id,item_id,category_id,behavior_type,timestamp"]
+             + rows[:10] + [""] + rows[10:])
+    text = newline.join(lines) + ("\n" if newline == "\n" else "")
+    path = tmp_path / "log.csv"
+    path.write_bytes(text.encode())
+    want = jprep_ds._read_csv_cols(str(path), usecols)
+    for chunk in (64, 32 << 20):
+        got = tprep_ds._read_csv_cols(str(path), usecols, chunk_bytes=chunk)
+        assert len(got) == len(usecols)
+        for g, w in zip(got, want):
+            assert g.dtype == np.int64
+            np.testing.assert_array_equal(g, w)
