@@ -72,6 +72,26 @@ fails or no CUDA device is present.
    a service built from the weights `train()` returned; and `topk_batch`
    for 16 users giving the score multisets of 16 `topk` calls. Steps/s,
    time per val, time per user, and the val and test AUC.
+7. The preset ladder: configs0, configs1, configs2 and configs3 (sum
+   pool), each with its preset's model flags and its own uniform
+   negatives (collisions resampled, [positive | negative] scored in the
+   candidates form), at the bench width and training knobs. Per rung: 3
+   warm-up steps (tables change on steps 0 and 2 only); 50 steps through
+   train_loop with the launches counted (every rung the gather and the
+   scatter-add, configs3 also the candidates forward and backward, no
+   rung the per-pair kernels), in which the loss must fall; the step's
+   time, a val on 8192 targets (its AUC printed) and a profile of 4 more
+   steps (kernels and device time a step); a 4 x 256 request on
+   the card against the CPU in f32 and bf16 at phase 3's tolerances; 3
+   steps of the preset's own widths in f32 on the card and on the CPU
+   from the same weights, batches and raw negatives. Then the CLI
+   (`python -m score_tpu_torch.train configs0 <dir>`, the bench width and
+   batch, one epoch, no `train_neg_mode` override) on phase 6's saved
+   dataset, in a subprocess, which must exit 0 and print its test line.
+   Phase 2 also holds the gather and scatter-add to their plain versions
+   at the launch shapes uniform negatives give: configs3's user table
+   over [positive | negative] ([4096,2,9,10]) and the item histories of
+   both candidates ([4096,2]), and configs0's shared table.
 
 The line before the last lists each kernel with its launches in the
 training run of its path (the sum-pool run for the gather, scatter-add and
@@ -106,6 +126,8 @@ T, FAN, D = 9, 10, 32                 # bench.py's slots, fan-out, width
 USERS, ITEMS, EVENTS = 50_000, 100_000, 2_000_000
 ROWS, WIDE = 16, 4096                 # score_batch: 16 users x 4096 items
 BATCH = 4096                          # bench.py's training batch
+# configs0's shared table on that dataset: round_up(1 + 90,553 + 50,000)
+SHARED_ROWS = 140608
 WARMUP_STEPS, TIMED_STEPS, MAX_POOL_STEPS = 3, 50, 10
 EVAL_TARGETS, EVAL_CPU_TARGETS, EVAL_BATCH = 8192, 512, 256
 F32_TOL = 1e-4
@@ -275,6 +297,17 @@ def phase_gather(card: str, dev, gen) -> dict:
          (16, 4096, T, FAN)),
         ("f32 [90560,32] ids [4096,9,10] (training)",
          torch.randn(90560, D, generator=gen, device=dev), (BATCH, T, FAN)),
+        # uniform negatives: configs3's user table and item histories over
+        # [positive | negative], and configs0's shared table
+        ("f32 [50048,32] ids [4096,2,9,10] (configs3 uniform, user table)",
+         torch.randn(50048, D, generator=gen, device=dev),
+         (BATCH, 2, T, FAN)),
+        ("int32 [90560,90] ids [4096,2] (configs3 uniform, item histories)",
+         torch.randint(0, 1 << 30, (90560, T * FAN), generator=gen,
+                       device=dev, dtype=torch.int32), (BATCH, 2)),
+        ("f32 [140608,32] ids [4096,9,10] (configs0 shared table)",
+         torch.randn(SHARED_ROWS, D, generator=gen, device=dev),
+         (BATCH, T, FAN)),
         ("f32 [100032,32] ids [1000003]",
          torch.randn(100032, D, generator=gen, device=dev), (1000003,)),
         ("int32 [150000,90] ids [16,4096]",
@@ -520,7 +553,13 @@ def phase_scatter(card: str, dev, gen) -> dict:
     cases = [("item [90560,32] ids [4096,9,10]", 90560, (BATCH, T, FAN)),
              ("item [90560,32] ids [4096,1]", 90560, (BATCH, 1)),
              ("user [50048,32] ids [4096,1,9,10]", 50048, (BATCH, 1, T, FAN)),
-             ("user [50048,32] ids [4096]", 50048, (BATCH,))]
+             ("user [50048,32] ids [4096]", 50048, (BATCH,)),
+             # uniform negatives: configs3's user table over [positive |
+             # negative], and configs0's shared table
+             ("user [50048,32] ids [4096,2,9,10] (configs3 uniform)", 50048,
+              (BATCH, 2, T, FAN)),
+             ("shared [140608,32] ids [4096,9,10] (configs0)", SHARED_ROWS,
+              (BATCH, T, FAN))]
     worst = 0.0
     line = None
     for label, V, shape in cases:
@@ -687,34 +726,45 @@ def bench_dataset():
     return ds
 
 
-def bench_config(dtype: str, width: bool = True, pool: str = "sum"):
-    """configs3 as bench.py trains it, with co-attention pool `pool`;
-    width=False keeps configs3's own (smaller) widths."""
-    from score_tpu_torch.config import configs3
-    cfg = configs3()
-    model = dict(compute_dtype=dtype, coattn_pool=pool)
+def ladder_config(rung: str, dtype: str, width: bool = True):
+    """Preset `rung` (configs0-3, with its own model flags and its uniform
+    negatives) at bench.py's width and training knobs (batch 4096, tables
+    every 2nd step at 2x lr); width=False keeps the preset's own (smaller)
+    widths."""
+    from score_tpu_torch.config import PRESETS
+    cfg = PRESETS[rung]()
+    model = dict(compute_dtype=dtype)
     if width:
         model.update(embed_dim=D, hidden_dim=64, mlp_dims=(128, 64))
     return cfg.replace(
         model=dataclasses.replace(cfg.model, **model),
-        data=dataclasses.replace(cfg.data, train_neg_mode="inbatch_iw"),
         train=dataclasses.replace(cfg.train, batch_size=BATCH,
                                   table_update_every=2, table_lr_boost=2.0))
 
 
+def bench_config(dtype: str, width: bool = True, pool: str = "sum"):
+    """configs3 as bench.py trains it (importance-weighted in-batch
+    negatives), with co-attention pool `pool`."""
+    cfg = ladder_config("configs3", dtype, width)
+    return cfg.replace(
+        model=dataclasses.replace(cfg.model, coattn_pool=pool),
+        data=dataclasses.replace(cfg.data, train_neg_mode="inbatch_iw"))
+
+
 def random_weights(cfg, ds) -> dict:
     """Flax-faithful init from a seed; then the zero-initialised attention
-    weights (Wr, Wtu, Wti, both pooling W) made non-zero and the tables
-    widened, so the co-attention and pooling scores are far from
+    weights (Wr, Wtu, Wti, the slot attention's and both pooling W) made
+    non-zero and the tables widened, so the attention scores are far from
     uniform and the score path is exercised."""
     from score_tpu_torch.params import init_params
     gen = torch.Generator().manual_seed(SEED)
     sd = init_params(cfg, ds.num_users, ds.num_items, gen)
-    for k in ("coattn.wr", "coattn.wtu", "coattn.wti", "pool_u.w",
-              "pool_i.w"):
-        sd[k] = torch.randn(sd[k].shape, generator=gen) * 0.3
-    for k in ("tables.user_table", "tables.item_table"):
-        sd[k] = torch.randn(sd[k].shape, generator=gen) * 0.5
+    for k in sd:
+        if k.startswith("coattn.") or k.endswith(".w"):
+            sd[k] = torch.randn(sd[k].shape, generator=gen) * 0.3
+    for k in sd:
+        if "table" in k:
+            sd[k] = torch.randn(sd[k].shape, generator=gen) * 0.5
     return sd
 
 
@@ -791,20 +841,8 @@ def phase_serving(card: str, ds, pool: str = "sum",
     log(f"[serve {pool}] score std {s1.std():.4f}; topk items "
         f"{top_i.tolist()}")
 
-    # the card against the CPU's plain path, same weights, 4 x 256
-    users4 = ds.test.user[ROWS:ROWS + 4].astype(np.int32)
-    items4 = rng.integers(1, ds.num_items + 1, (4, 256)).astype(np.int32)
-    for dtype in ("float32", "bfloat16"):
-        c = bench_config(dtype, pool=pool)
-        gpu = svc if dtype == "bfloat16" else ScoringService(
-            c, ds, sd, device=device)
-        cpu = ScoringService(c, ds, sd, device="cpu")
-        got, want = gpu.score_batch(users4, items4), cpu.score_batch(
-            users4, items4)
-        np.testing.assert_allclose(got, want, **CPU_TOL[dtype])
-        log(f"[serve {pool}] {dtype} card vs cpu 4x256: max_abs_err "
-            f"{np.abs(got - want).max():.3e} (tol {CPU_TOL[dtype]})")
-        del gpu, cpu
+    serve_vs_cpu(ds, lambda dtype: bench_config(dtype, pool=pool), sd, rng,
+                 f"[serve {pool}]", device, card_bf16=svc)
 
     # timings (bf16 service), host clock around calls that read back
     items101 = rng.integers(1, ds.num_items + 1, 101).astype(np.int32)
@@ -838,6 +876,27 @@ def phase_serving(card: str, ds, pool: str = "sum",
     return launches
 
 
+def serve_vs_cpu(ds, config, sd, rng, tag: str, device="cuda",
+                 card_bf16=None) -> None:
+    """A 4 x 256 request on the card against the same service on the CPU
+    (the plain path), same weights, with config(dtype) in f32 and bf16
+    (`card_bf16`: a bf16 service on the card to reuse)."""
+    from score_tpu_torch.serve import ScoringService
+    users4 = ds.test.user[ROWS:ROWS + 4].astype(np.int32)
+    items4 = rng.integers(1, ds.num_items + 1, (4, 256)).astype(np.int32)
+    for dtype in ("float32", "bfloat16"):
+        c = config(dtype)
+        gpu = (card_bf16 if dtype == "bfloat16" and card_bf16 is not None
+               else ScoringService(c, ds, sd, device=device))
+        cpu = ScoringService(c, ds, sd, device="cpu")
+        got, want = gpu.score_batch(users4, items4), cpu.score_batch(
+            users4, items4)
+        np.testing.assert_allclose(got, want, **CPU_TOL[dtype])
+        log(f"{tag} {dtype} card vs cpu 4x256: max_abs_err "
+            f"{np.abs(got - want).max():.3e} (tol {CPU_TOL[dtype]})")
+        del gpu, cpu
+
+
 # --- phase 4: training -----------------------------------------------------
 
 def _device_batches(ds, n: int, batch: int, device):
@@ -853,7 +912,7 @@ def _tables(state) -> dict:
 
 
 def _profile(state, graph, batches, neg_iw, card, step_ms,
-             tag: str = "[train]") -> None:
+             tag: str = "[train]", negatives=None) -> None:
     """Device time by kernel over the steady steps of a torch.profiler
     window (the first two steps start the profiler and are not counted).
     The profiler slows the host, so the idle share is given twice: within
@@ -868,7 +927,8 @@ def _profile(state, graph, batches, neg_iw, card, step_ms,
             if j == 2:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-            train_step(state, graph, b, neg_iw=neg_iw, with_auc=False)
+            train_step(state, graph, b, neg_iw=neg_iw, with_auc=False,
+                       negatives=None if negatives is None else negatives[j])
             if j == len(batches) - 1:
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1e3
@@ -891,15 +951,77 @@ def _profile(state, graph, batches, neg_iw, card, step_ms,
             f"{key[:100]}")
 
 
+def _train_run(card: str, state, graph, batches, steps: int, tag: str,
+               want: set, full: bool = True, neg_iw=None, negatives=None):
+    """Warm-up steps, in which the tables must change on steps 0 and 2
+    only; then `steps` steps through train_loop with the launches counted
+    (the kernels in `want` and no other), in which the loss must stay
+    finite and, when `full`, fall. `negatives`: the raw uniform draws for
+    each batch; without them each step's in-batch shifts come from
+    state.generator. Returns the state, the launches and the step's ms by
+    CUDA events."""
+    from score_tpu_torch.train import draw_shifts, train_loop, train_step
+    losses, aucs = [], []
+    for j in range(WARMUP_STEPS):
+        before = _tables(state)
+        state, m = train_step(
+            state, graph, batches[j], neg_iw=neg_iw,
+            negatives=None if negatives is None else negatives[j])
+        losses.append(m["loss"])
+        aucs.append(round(m["batch_auc"].item(), 5))
+        after = dict(state.model.named_parameters())
+        changed = any(not torch.equal(v, after[k]) for k, v in before.items())
+        if changed != (j % 2 == 0):
+            raise AssertionError(f"{tag} step {j}: tables changed={changed}")
+    log(f"{tag} warm-up: tables changed on steps 0 and 2 only; batch_auc "
+        f"{aucs}")
+
+    # the training run whose launches the counters report
+    timed = slice(WARMUP_STEPS, WARMUP_STEPS + steps)
+    shifts = negs = None
+    if negatives is None:
+        shifts = [draw_shifts(state.generator, 1, BATCH)
+                  for _ in range(steps)]
+    else:
+        negs = list(negatives[timed])
+    fns = reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    state, ms = train_loop(state, graph, batches[timed], shifts, neg_iw,
+                           negatives_list=negs)
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    ev_ms = start.elapsed_time(end) / steps
+    launches = {k: fn.launches for k, fn in fns.items()}
+    log(f"{tag} launches in {steps} steps: {launches}")
+    check_launches(tag, launches, want)
+    curve = [x.item() for x in losses] + ms["loss"].tolist()
+    if not np.isfinite(curve).all():
+        raise AssertionError(f"{tag} non-finite loss: {curve}")
+    if full and not np.mean(curve[-10:]) < curve[0]:
+        raise AssertionError(f"{tag} the loss did not fall: {curve}")
+    log(f"{tag} loss curve ({len(curve)} steps): "
+        f"{[round(x, 5) for x in curve]}")
+    log(f"{tag} batch_auc of the last step {ms['batch_auc'].item():.4f}")
+    log(f"{tag} step {ev_ms:.3f} ms by CUDA events, {wall_ms:.3f} ms by "
+        f"wall clock; {BATCH / ev_ms * 1e3:.0f} examples/s (events), "
+        f"{BATCH / wall_ms * 1e3:.0f} examples/s (wall) [{card}]")
+    log(f"{tag} peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return state, launches, ev_ms
+
+
 def phase_training(card: str, ds, dev, pool: str = "sum",
                    steps: int = TIMED_STEPS) -> dict:
     """Warm-up, then `steps` timed steps whose launches are counted; with
     50 or more steps the loss must fall and a profile follows."""
     from score_tpu_torch.graph import device_graph
     from score_tpu_torch.params import init_params
-    from score_tpu_torch.train import (draw_shifts, init_state,
-                                       item_importance_weights, train_loop,
-                                       train_step)
+    from score_tpu_torch.train import init_state, item_importance_weights
     full = steps >= TIMED_STEPS
     tag = f"[train {pool}]"
     cfg = bench_config("bfloat16", pool=pool)
@@ -912,50 +1034,9 @@ def phase_training(card: str, ds, dev, pool: str = "sum",
     batches = _device_batches(ds, WARMUP_STEPS + steps + 6 * full, BATCH,
                               dev)
 
-    # warm-up: tables change on steps 0 and 2 only
-    losses, aucs = [], []
-    for j in range(WARMUP_STEPS):
-        before = _tables(state)
-        state, m = train_step(state, graph, batches[j], neg_iw=neg_iw)
-        losses.append(m["loss"])
-        aucs.append(round(m["batch_auc"].item(), 5))
-        after = dict(state.model.named_parameters())
-        changed = any(not torch.equal(v, after[k]) for k, v in before.items())
-        if changed != (j % 2 == 0):
-            raise AssertionError(f"step {j}: tables changed={changed}")
-    log(f"{tag} warm-up: tables changed on steps 0 and 2 only; batch_auc "
-        f"{aucs}")
-
-    # the training run whose launches the counters report
-    timed = batches[WARMUP_STEPS:WARMUP_STEPS + steps]
-    shifts = [draw_shifts(state.generator, 1, BATCH) for _ in timed]
-    fns = reset_counts()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    start.record()
-    state, ms = train_loop(state, graph, timed, shifts, neg_iw)
-    end.record()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    ev_ms = start.elapsed_time(end) / steps
-    launches = {k: fn.launches for k, fn in fns.items()}
-    log(f"{tag} launches in {steps} steps: {launches}")
-    check_launches(f"training, pool {pool}", launches, TRAIN_KERNELS[pool])
-    curve = [x.item() for x in losses] + ms["loss"].tolist()
-    if not np.isfinite(curve).all():
-        raise AssertionError(f"non-finite loss: {curve}")
-    if full and not np.mean(curve[-10:]) < curve[0]:
-        raise AssertionError(f"the loss did not fall: {curve}")
-    log(f"{tag} loss curve ({len(curve)} steps): "
-        f"{[round(x, 5) for x in curve]}")
-    log(f"{tag} batch_auc of the last step {ms['batch_auc'].item():.4f}")
-    log(f"{tag} step {ev_ms:.3f} ms by CUDA events, {wall_ms:.3f} ms by "
-        f"wall clock; {BATCH / ev_ms * 1e3:.0f} examples/s (events), "
-        f"{BATCH / wall_ms * 1e3:.0f} examples/s (wall) [{card}]")
-    log(f"{tag} peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    state, launches, ev_ms = _train_run(
+        card, state, graph, batches, steps, tag, TRAIN_KERNELS[pool], full,
+        neg_iw=neg_iw)
     if full:
         _profile(state, graph, batches[-6:], neg_iw, card, ev_ms, tag)
     del state, graph, batches
@@ -968,27 +1049,39 @@ def phase_training_vs_cpu(ds, pool: str = "sum",
     """3 steps of configs3 (co-attention pool `pool`) at its own widths,
     f32, batch 256, on the card and on the CPU from the same weights (the
     co-attention's made non-zero), batches and shifts."""
+    steps_vs_cpu(ds, bench_config("float32", width=False, pool=pool),
+                 f"[train {pool}]", devices, shifts=[[17], [101], [3]])
+
+
+def steps_vs_cpu(ds, cfg, tag: str, devices=("cuda", "cpu"), shifts=None,
+                 negatives=None) -> None:
+    """3 steps of `cfg`, f32, batch 256, on the card and on the CPU from
+    the same weights (the zero-initialised attention weights made
+    non-zero: at their zero init every co-attention pool scores the same),
+    batches and in-batch shifts or raw uniform negatives."""
     from score_tpu_torch.graph import device_graph
     from score_tpu_torch.params import init_params
     from score_tpu_torch.train import (init_state, item_importance_weights,
                                        train_step)
-    cfg = bench_config("float32", width=False, pool=pool)
     gen = torch.Generator().manual_seed(SEED + 1)
     sd = init_params(cfg, ds.num_users, ds.num_items, gen)
-    # non-zero co-attention weights: at their zero init every pool scores
-    # the same (a zero relation matrix)
-    for k in ("coattn.wr", "coattn.wtu", "coattn.wti"):
-        sd[k] = torch.randn(sd[k].shape, generator=gen) * 0.3
+    for k in sd:
+        if k.startswith("coattn.") or k.startswith("slot_attn_"):
+            sd[k] = torch.randn(sd[k].shape, generator=gen) * 0.3
     neg_iw = torch.from_numpy(item_importance_weights(ds.train, ds.num_items))
     batches = _device_batches(ds, 3, 256, "cpu")
-    shifts = [[17], [101], [3]]
     out = {}
     for device in devices:
-        state = init_state(cfg, ds.num_users, ds.num_items, sd, device=device)
+        # a state on the CPU trains sd's own tensors in place: give it a copy
+        state = init_state(cfg, ds.num_users, ds.num_items,
+                           {k: v.clone() for k, v in sd.items()},
+                           device=device)
         graph = device_graph(ds.graph, device)
         losses = []
-        for b, s in zip(batches, shifts):
-            state, m = train_step(state, graph, b, s, neg_iw.to(device))
+        for j, b in enumerate(batches):
+            state, m = train_step(
+                state, graph, b, shifts and shifts[j], neg_iw.to(device),
+                negatives=None if negatives is None else negatives[j])
             losses.append(m["loss"].item())
         out[device] = (losses, {k: v.detach().cpu() for k, v in
                                 state.model.named_parameters()})
@@ -1001,7 +1094,7 @@ def phase_training_vs_cpu(ds, pool: str = "sum",
         err = (got - want).abs().max().item()
         if err >= worst:
             worst, where = err, k
-    log(f"[train {pool}] f32 card vs cpu, 3 steps of batch 256: losses "
+    log(f"{tag} f32 card vs cpu, 3 steps of batch 256: losses "
         f"{card[0]} vs {cpu[0]}; params max_abs_err "
         f"{worst:.3e} ({where}; tol {TRAIN_CPU_TOL})")
 
@@ -1076,137 +1169,234 @@ DRIVER_TIMEOUT_S = 300
 TOPK_USERS = 16
 
 
-def phase_driver(card: str, ds, dev) -> None:
+def phase_driver(card: str, ds, dev, work: str) -> str:
+    """The driver phase in the directory `work`; returns the directory of
+    the saved bench dataset, which phase 7's CLI reuses."""
     from score_tpu_torch.checkpoint import CheckpointManager, apply_restore
     from score_tpu_torch.config import apply_overrides, configs3
     from score_tpu_torch.data.schema import save_dataset
     from score_tpu_torch.serve import ScoringService
     from score_tpu_torch.train import init_state, train
     spe = len(ds.train) // BATCH
-    with tempfile.TemporaryDirectory() as work:
-        data_dir, ck = os.path.join(work, "data"), os.path.join(work, "ck")
-        t0 = time.perf_counter()
-        save_dataset(ds, data_dir, compress=False)
-        log(f"[driver] bench dataset saved (uncompressed) in "
-            f"{time.perf_counter() - t0:.2f} s")
+    data_dir, ck = os.path.join(work, "data"), os.path.join(work, "ck")
+    t0 = time.perf_counter()
+    save_dataset(ds, data_dir, compress=False)
+    log(f"[driver] bench dataset saved (uncompressed) in "
+        f"{time.perf_counter() - t0:.2f} s")
 
-        # the CLI, one epoch, in its own process
-        args = [*DRIVER_ARGS, f"train.checkpoint_dir={ck}"]
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "score_tpu_torch.train", "configs3",
-             data_dir, *args], cwd=Path(__file__).resolve().parent,
-            capture_output=True, text=True, timeout=DRIVER_TIMEOUT_S,
-            env=dict(os.environ, PYTHONUNBUFFERED="1"))
-        cli_s = time.perf_counter() - t0
-        for line in proc.stdout.splitlines():
-            log(f"[driver] cli: {line}")
-        if proc.returncode != 0:
-            raise AssertionError(f"the CLI exited {proc.returncode}:\n"
-                                 f"{proc.stderr[-4000:]}")
-        lines = proc.stdout.splitlines()
-        if sum(line.startswith("test: auc") for line in lines) != 1:
-            raise AssertionError("the CLI printed no test line")
-        cli_val = [float(line.split()[5]) for line in lines
-                   if line.startswith("  val @ step")]
-        log(f"[driver] cli: exit 0 in {cli_s:.1f} s of wall clock, "
-            f"{spe} steps; val auc by step {cli_val} [{card}]")
+    # the CLI, one epoch, in its own process
+    args = [*DRIVER_ARGS, f"train.checkpoint_dir={ck}"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "score_tpu_torch.train", "configs3",
+         data_dir, *args], cwd=Path(__file__).resolve().parent,
+        capture_output=True, text=True, timeout=DRIVER_TIMEOUT_S,
+        env=dict(os.environ, PYTHONUNBUFFERED="1"))
+    cli_s = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log(f"[driver] cli: {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"the CLI exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    lines = proc.stdout.splitlines()
+    if sum(line.startswith("test: auc") for line in lines) != 1:
+        raise AssertionError("the CLI printed no test line")
+    cli_val = [float(line.split()[5]) for line in lines
+               if line.startswith("  val @ step")]
+    log(f"[driver] cli: exit 0 in {cli_s:.1f} s of wall clock, "
+        f"{spe} steps; val auc by step {cli_val} [{card}]")
 
-        # the second epoch in this process, resuming from the CLI's latest
-        cfg = apply_overrides(configs3(), dict(
-            a.split("=", 1) for a in (*args, "train.num_epochs=2")))
-        rows_path = os.path.join(work, "log.jsonl")
-        fns = reset_counts()
-        out = train(cfg, ds, log_path=rows_path, device=dev)
-        torch.cuda.synchronize()
-        launches = {k: fn.launches for k, fn in fns.items()}
-        log(f"[driver] launches in the resumed run: {launches}")
-        check_launches("driver, sum pool", launches, TRAIN_KERNELS["sum"])
-        tm = out["timing"]
-        if tm["start_step"] != spe or out["steps_run"] != 2 * spe:
-            raise AssertionError(f"resumed at {tm['start_step']} and ran "
-                                 f"to {out['steps_run']}; expected {spe} "
-                                 f"and {2 * spe}")
-        rows = [json.loads(line) for line in open(rows_path)]
-        vals = [r for r in rows if r["split"] == "val"]
-        if (not vals or any(r["step"] <= spe for r in vals)
-                or [r["split"] for r in rows][-1] != "test"
-                or not all(np.isfinite(v) for r in rows for k, v in r.items()
-                           if k not in ("step", "split"))):
-            raise AssertionError(f"bad JSONL rows: {rows}")
-        log(f"[driver] resumed at step {tm['start_step']}, ran to "
-            f"{out['steps_run']}: {tm['steps']} steps in "
-            f"{tm['train_s']:.3f} s, {tm['steps'] / tm['train_s']:.2f} "
-            f"steps/s ({BATCH * tm['steps'] / tm['train_s']:.0f} "
-            f"examples/s); {len(tm['val_s'])} vals of {EVAL_TARGETS} "
-            f"targets, {statistics.mean(tm['val_s']):.3f} s each "
-            f"({[round(v, 3) for v in tm['val_s']]}); test eval of "
-            f"{len(ds.test)} targets {tm['test_s']:.3f} s [{card}]")
-        log(f"[driver] val auc by step "
-            f"{[(r['step'], round(r['auc'], 4)) for r in vals]}; best "
-            f"{out['best_val_auc']:.4f} at step {out['best_step']}; test "
-            f"{json.dumps({k: round(v, 4) for k, v in out['test'].items()})}")
+    # the second epoch in this process, resuming from the CLI's latest
+    cfg = apply_overrides(configs3(), dict(
+        a.split("=", 1) for a in (*args, "train.num_epochs=2")))
+    rows_path = os.path.join(work, "log.jsonl")
+    fns = reset_counts()
+    out = train(cfg, ds, log_path=rows_path, device=dev)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in fns.items()}
+    log(f"[driver] launches in the resumed run: {launches}")
+    check_launches("driver, sum pool", launches, TRAIN_KERNELS["sum"])
+    tm = out["timing"]
+    if tm["start_step"] != spe or out["steps_run"] != 2 * spe:
+        raise AssertionError(f"resumed at {tm['start_step']} and ran "
+                             f"to {out['steps_run']}; expected {spe} "
+                             f"and {2 * spe}")
+    rows = [json.loads(line) for line in open(rows_path)]
+    vals = [r for r in rows if r["split"] == "val"]
+    if (not vals or any(r["step"] <= spe for r in vals)
+            or [r["split"] for r in rows][-1] != "test"
+            or not all(np.isfinite(v) for r in rows for k, v in r.items()
+                       if k not in ("step", "split"))):
+        raise AssertionError(f"bad JSONL rows: {rows}")
+    log(f"[driver] resumed at step {tm['start_step']}, ran to "
+        f"{out['steps_run']}: {tm['steps']} steps in "
+        f"{tm['train_s']:.3f} s, {tm['steps'] / tm['train_s']:.2f} "
+        f"steps/s ({BATCH * tm['steps'] / tm['train_s']:.0f} "
+        f"examples/s); {len(tm['val_s'])} vals of {EVAL_TARGETS} "
+        f"targets, {statistics.mean(tm['val_s']):.3f} s each "
+        f"({[round(v, 3) for v in tm['val_s']]}); test eval of "
+        f"{len(ds.test)} targets {tm['test_s']:.3f} s [{card}]")
+    log(f"[driver] val auc by step "
+        f"{[(r['step'], round(r['auc'], 4)) for r in vals]}; best "
+        f"{out['best_val_auc']:.4f} at step {out['best_step']}; test "
+        f"{json.dumps({k: round(v, 4) for k, v in out['test'].items()})}")
 
-        # one checkpoint's save and restore
-        state = init_state(cfg, ds.num_users, ds.num_items,
-                           {k: v.clone() for k, v in out["params"].items()},
-                           device=dev)
-        mgr = CheckpointManager(os.path.join(work, "timed"))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        mgr.save("latest", state, (1, 0), 0.5, 2 * spe)
-        snap_s = time.perf_counter() - t0
-        mgr.wait()
-        save_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        apply_restore(state, mgr.restore("latest", state))
-        torch.cuda.synchronize()
-        restore_s = time.perf_counter() - t0
-        size = os.path.getsize(mgr.path("latest"))
-        log(f"[driver] checkpoint {size} bytes: save {save_s:.3f} s "
-            f"({snap_s:.3f} s until the step may go on), restore "
-            f"{restore_s:.3f} s [{card}]")
-        del state
+    # one checkpoint's save and restore
+    state = init_state(cfg, ds.num_users, ds.num_items,
+                       {k: v.clone() for k, v in out["params"].items()},
+                       device=dev)
+    mgr = CheckpointManager(os.path.join(work, "timed"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save("latest", state, (1, 0), 0.5, 2 * spe)
+    snap_s = time.perf_counter() - t0
+    mgr.wait()
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    apply_restore(state, mgr.restore("latest", state))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    size = os.path.getsize(mgr.path("latest"))
+    log(f"[driver] checkpoint {size} bytes: save {save_s:.3f} s "
+        f"({snap_s:.3f} s until the step may go on), restore "
+        f"{restore_s:.3f} s [{card}]")
+    del state
 
-        # serving the best checkpoint
-        fns = reset_counts()
-        svc = ScoringService.from_checkpoint(cfg, ds, ck, which="best",
-                                             device=dev)
-        ref = ScoringService(cfg, ds, out["params"], device=dev)
-        rng = np.random.default_rng(SEED + 6)
-        users4 = ds.test.user[:4].astype(np.int32)
-        items4 = rng.integers(1, ds.num_items + 1, (4, 256)).astype(np.int32)
-        got, want = svc.score_batch(users4, items4), ref.score_batch(
-            users4, items4)
-        if not np.array_equal(got, want):
-            raise AssertionError(
-                f"from_checkpoint scores differ from train()'s weights': "
-                f"max |diff| {np.abs(got - want).max():.3e}")
-        log("[driver] from_checkpoint('best') 4x256: bit-equal to a "
-            "service on train()'s returned weights")
-        users = np.unique(ds.test.user)[:TOPK_USERS].astype(np.int32)
-        svc.topk_batch(users[:2], k=10)                  # warm
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        bi, bs = svc.topk_batch(users, k=10)
-        batch_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        singles = [svc.topk(int(u), k=10) for u in users]
-        single_s = time.perf_counter() - t0
-        launches = {k: fn.launches for k, fn in fns.items()}
-        check_launches("driver serving, sum pool", launches,
-                       SERVE_KERNELS["sum"])
-        for r, (ti, ts) in enumerate(singles):
-            if not (np.array_equal(np.sort(bs[r]), np.sort(ts))
-                    and (bi[r] >= 1).all() and np.all(np.diff(bs[r]) <= 0)):
-                raise AssertionError(f"topk_batch user {users[r]}: "
-                                     f"{bs[r]} vs topk {ts}")
-        log(f"[driver] topk_batch of {TOPK_USERS} users over "
-            f"{ds.num_items} items: score multisets equal to {TOPK_USERS} "
-            f"topk calls; {batch_s:.4f} s, {batch_s / TOPK_USERS:.4f} s a "
-            f"user (topk: {single_s / TOPK_USERS:.4f} s a user) [{card}]")
-        del svc, ref
+    # serving the best checkpoint
+    fns = reset_counts()
+    svc = ScoringService.from_checkpoint(cfg, ds, ck, which="best",
+                                         device=dev)
+    ref = ScoringService(cfg, ds, out["params"], device=dev)
+    rng = np.random.default_rng(SEED + 6)
+    users4 = ds.test.user[:4].astype(np.int32)
+    items4 = rng.integers(1, ds.num_items + 1, (4, 256)).astype(np.int32)
+    got, want = svc.score_batch(users4, items4), ref.score_batch(
+        users4, items4)
+    if not np.array_equal(got, want):
+        raise AssertionError(
+            f"from_checkpoint scores differ from train()'s weights': "
+            f"max |diff| {np.abs(got - want).max():.3e}")
+    log("[driver] from_checkpoint('best') 4x256: bit-equal to a "
+        "service on train()'s returned weights")
+    users = np.unique(ds.test.user)[:TOPK_USERS].astype(np.int32)
+    svc.topk_batch(users[:2], k=10)                  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bi, bs = svc.topk_batch(users, k=10)
+    batch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    singles = [svc.topk(int(u), k=10) for u in users]
+    single_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in fns.items()}
+    check_launches("driver serving, sum pool", launches,
+                   SERVE_KERNELS["sum"])
+    for r, (ti, ts) in enumerate(singles):
+        if not (np.array_equal(np.sort(bs[r]), np.sort(ts))
+                and (bi[r] >= 1).all() and np.all(np.diff(bs[r]) <= 0)):
+            raise AssertionError(f"topk_batch user {users[r]}: "
+                                 f"{bs[r]} vs topk {ts}")
+    log(f"[driver] topk_batch of {TOPK_USERS} users over "
+        f"{ds.num_items} items: score multisets equal to {TOPK_USERS} "
+        f"topk calls; {batch_s:.4f} s, {batch_s / TOPK_USERS:.4f} s a "
+        f"user (topk: {single_s / TOPK_USERS:.4f} s a user) [{card}]")
+    del svc, ref
     torch.cuda.empty_cache()
+    return data_dir
+
+
+# --- phase 7: the preset ladder with its uniform negatives ------------------
+
+LADDER = ("configs0", "configs1", "configs2", "configs3")
+# configs0-2 run no co-attention; configs3 its candidates kernels (sum pool)
+LADDER_KERNELS = {rung: {"gather_rows", "scatter_add_rows"}
+                  for rung in LADDER[:3]}
+LADDER_KERNELS["configs3"] = TRAIN_KERNELS["sum"]
+# the CLI's overrides: the bench width and batch, one epoch; the preset's
+# own negatives (no train_neg_mode)
+LADDER_CLI_ARGS = ("model.embed_dim=32", "model.hidden_dim=64",
+                   "model.mlp_dims=128,64", "model.compute_dtype=bfloat16",
+                   f"train.batch_size={BATCH}", "train.table_update_every=2",
+                   "train.table_lr_boost=2.0", "train.num_epochs=1",
+                   f"train.eval_max_targets={EVAL_TARGETS}")
+
+
+def phase_ladder_rung(card: str, ds, dev, rung: str) -> dict:
+    """Preset `rung` at the bench width with its uniform negatives:
+    `_train_run`'s warm-up and 50 counted steps, in which the loss must
+    fall; a val on EVAL_TARGETS targets; a torch.profiler window; serving
+    card against CPU; 3 small f32 steps card against CPU from the same raw
+    negatives."""
+    from score_tpu_torch.graph import device_graph
+    from score_tpu_torch.params import init_params
+    from score_tpu_torch.train import (draw_negatives, evaluate, init_state,
+                                       make_eval_step)
+    tag = f"[ladder {rung}]"
+    cfg = ladder_config(rung, "bfloat16")
+    if cfg.data.train_neg_mode != "uniform":
+        raise AssertionError(f"{rung}: negatives {cfg.data.train_neg_mode}")
+    k = cfg.data.num_train_neg
+    sd = init_params(cfg, ds.num_users, ds.num_items,
+                     torch.Generator().manual_seed(SEED))
+    state = init_state(cfg, ds.num_users, ds.num_items, sd, device=dev)
+    graph = device_graph(ds.graph, dev)
+    batches = _device_batches(ds, WARMUP_STEPS + TIMED_STEPS + 6, BATCH,
+                              dev)
+    # raw draws on the host, staged once
+    negs = torch.stack([draw_negatives(state.generator, BATCH, k,
+                                       ds.num_items)
+                        for _ in batches]).to(dev)
+    state, _, ev_ms = _train_run(card, state, graph, batches, TIMED_STEPS,
+                                 tag, LADDER_KERNELS[rung], negatives=negs)
+
+    t0 = time.perf_counter()
+    val = evaluate(make_eval_step(state.model), graph, ds.val,
+                   max_targets=EVAL_TARGETS)
+    val_s = time.perf_counter() - t0
+    if not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in val.values()):
+        raise AssertionError(f"{tag} val metrics out of range: {val}")
+    log(f"{tag} val after {WARMUP_STEPS + TIMED_STEPS} steps, "
+        f"{EVAL_TARGETS} targets: auc {val['auc']:.4f} ndcg@10 "
+        f"{val['ndcg@10']:.4f} in {val_s:.3f} s [{card}]")
+    _profile(state, graph, batches[-6:], None, card, ev_ms, tag,
+             negatives=negs[-6:])
+    del state, graph, batches, negs
+    torch.cuda.empty_cache()
+
+    serve_vs_cpu(ds, lambda dtype: ladder_config(rung, dtype),
+                 random_weights(cfg, ds), np.random.default_rng(SEED + 7),
+                 tag, dev)
+    small = ladder_config(rung, "float32", width=False)
+    gen = torch.Generator().manual_seed(SEED + 2)
+    raw = [draw_negatives(gen, 256, small.data.num_train_neg, ds.num_items)
+           for _ in range(3)]
+    steps_vs_cpu(ds, small, tag, (dev, "cpu"), negatives=raw)
+    return dict(step_ms=ev_ms, val_auc=val["auc"])
+
+
+def phase_ladder(card: str, ds, dev, data_dir: str) -> None:
+    """Phase 7: every rung of the ladder, then the configs0 CLI for one
+    epoch on the saved bench dataset, in a subprocess."""
+    t_phase = time.perf_counter()
+    out = {rung: phase_ladder_rung(card, ds, dev, rung) for rung in LADDER}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "score_tpu_torch.train", "configs0", data_dir,
+         *LADDER_CLI_ARGS], cwd=Path(__file__).resolve().parent,
+        capture_output=True, text=True, timeout=DRIVER_TIMEOUT_S,
+        env=dict(os.environ, PYTHONUNBUFFERED="1"))
+    cli_s = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log(f"[ladder] cli configs0: {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"the configs0 CLI exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    if sum(line.startswith("test: auc")
+           for line in proc.stdout.splitlines()) != 1:
+        raise AssertionError("the configs0 CLI printed no test line")
+    log(f"[ladder] cli configs0: exit 0 in {cli_s:.1f} s of wall clock "
+        f"[{card}]")
+    log(f"[ladder] {json.dumps(out)}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
 
 
 def main() -> int:
@@ -1235,7 +1425,9 @@ def main() -> int:
     for pool in ("sum", "mean", "max"):
         phase_training_vs_cpu(ds, pool)
     phase_eval(card, ds, dev)
-    phase_driver(card, ds, dev)
+    with tempfile.TemporaryDirectory() as work:
+        data_dir = phase_driver(card, ds, dev, work)
+        phase_ladder(card, ds, dev, data_dir)
     kernels = [
         dict(name="gather_rows", route="cuda",
              source="score_tpu_torch/csrc/gather.cu",

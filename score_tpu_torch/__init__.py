@@ -13,12 +13,13 @@ Layout:
     kernels/   hand-written CUDA kernels (sources in csrc/), each with a
                plain PyTorch version for CPU tensors and a launch counter
     graph.py   device graph store and history gathers
-    nn/        embed, co-attention, encoders, scorer, model (configs3)
+    nn/        embed, slot aggregation (mean, slot attention,
+               co-attention), encoders, scorer, model (configs0-3)
     params.py  flax <-> torch weight and Adam-state bridge, flax-faithful init
     metrics.py auc
-    serve.py   ScoringService: score, score_batch, topk
-    train.py   the configs3 train step and loop (in-batch IW negatives,
-               Adam with stride-K tables)
+    serve.py   ScoringService: score, score_batch, topk, topk_batch
+    train.py   the train step and loop (uniform or in-batch negatives,
+               Adam with stride-K tables), eval, the train() driver, CLI
 
 Entry points run on the CUDA card unless the caller passes device="cpu".
 """

@@ -72,12 +72,16 @@ def slot_valid_mask(slots: torch.Tensor, num_slots: int) -> torch.Tensor:
 
 
 def gather_candidate_batch(g: DeviceGraph, users: torch.Tensor,
-                           cand: torch.Tensor, slots: torch.Tensor) -> dict:
+                           cand: torch.Tensor, slots: torch.Tensor,
+                           item_side: bool = True) -> dict:
     """History inputs for B users vs C candidate items each
     (ScoreModel.score_candidates). users/slots: [B]; cand: [B, C]. The
-    user-side gather runs once per user, not per candidate."""
+    user-side gather runs once per user, not per candidate. With
+    item_side=False (a model of sides='user', which reads no item-side
+    history) the candidates' histories are not gathered."""
     u_hist, u_cnt = gather_side(g.u2i, g.u2i_cnt, users)
-    i_hist, i_cnt = gather_side(g.i2u, g.i2u_cnt, cand)
-    return dict(user=users, slot=slots, u_hist=u_hist, u_cnt=u_cnt,
-                cand=cand, i_hist=i_hist, i_cnt=i_cnt,
-                slot_valid=slot_valid_mask(slots, g.num_slots))
+    out = dict(user=users, slot=slots, u_hist=u_hist, u_cnt=u_cnt, cand=cand,
+               slot_valid=slot_valid_mask(slots, g.num_slots))
+    if item_side:
+        out["i_hist"], out["i_cnt"] = gather_side(g.i2u, g.i2u_cnt, cand)
+    return out

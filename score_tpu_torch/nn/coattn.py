@@ -1,9 +1,11 @@
-"""Per-slot neighbour-set aggregation: SCoRe's cross-neighbour co-attention.
+"""Per-slot neighbour-set aggregation: the masked mean (configs0-1), per-side
+slot attention (configs2) and SCoRe's cross-neighbour co-attention
+(configs3).
 
-Counterpart of score_tpu/nn/coattn.py for configs3's co-attention with the
-sum, mean and max pools of the relation matrix, plus `masked_softmax` and
-`slot_mean`. The routing mirrors the reference's (score_tpu/nn/coattn.py
-CrossCoAttention):
+Counterpart of score_tpu/nn/coattn.py: `masked_softmax`, `slot_mean`,
+`SlotAttention`, and the co-attention with the sum, mean and max pools of
+the relation matrix. The co-attention's routing mirrors the reference's
+(score_tpu/nn/coattn.py CrossCoAttention):
   * pool='sum' runs the candidates-form kernels,
     `kernels.coattn_cand.cross_coattn_cand`, forward and backward;
   * pool='mean' or 'max' runs the per-pair kernels,
@@ -54,6 +56,37 @@ def slot_mean(E: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Masked mean over the neighbour axis. E: [..., n, d], mask: [..., n]."""
     m = mask[..., None].to(E.dtype)
     return (E * m).sum(dim=-2) / m.sum(dim=-2).clamp_min(1.0)
+
+
+class SlotAttention(nn.Module):
+    """Per-side target-aware attention over each slot's neighbour set
+    (configs2): scores = (E W) . target / sqrt(d), c_t = softmax^T E.
+
+    E [B, Ce, T, k, d] with Ce = 1 (shared by the candidates: the user
+    side) or C (the item side), mask [B, Ce, T, k], target [B, C, d] ->
+    [B, C, T, d]. The shared side is not expanded C times: only the
+    [B, C, T, k] scores carry the candidate axis. `w` starts at zero, so
+    the rung starts as the masked mean and learns to deviate."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.w = nn.Parameter(torch.zeros(dim, dim))
+
+    def forward(self, E, mask, target):
+        dt = E.dtype
+        d = E.shape[-1]
+        # project the target, not the neighbours: (E W) . t == E . (t W^T)
+        tq = target @ self.w.to(dt).T                           # [B,C,d]
+        # 1/sqrt(d) rounded to the activations' dtype, as the reference
+        scale = (1.0 / torch.tensor(float(d), dtype=dt).sqrt()).item()
+        if E.shape[1] == 1:        # the mask [B,1,T,k] broadcasts over C
+            Es = E[:, 0]
+            scores = torch.einsum("btkd,bcd->bctk", Es, tq) * scale
+            a = masked_softmax(scores, mask)
+            return torch.einsum("bctk,btkd->bctd", a, Es)
+        scores = torch.einsum("bctkd,bcd->bctk", E, tq) * scale
+        a = masked_softmax(scores, mask)
+        return torch.einsum("bctk,bctkd->bctd", a, E)
 
 
 class CrossCoAttention(nn.Module):

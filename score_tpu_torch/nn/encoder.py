@@ -18,6 +18,30 @@ from torch import nn
 from .coattn import masked_softmax
 
 
+class _Logistic(torch.autograd.Function):
+    """The logistic function in bf16 as the reference's lowering computes
+    it, 1 / (1 + exp(-x)) with every op rounded to bf16 (torch.sigmoid
+    rounds once, and differs in the last bit on many inputs); its
+    gradient g * y * (1 - y), JAX's rule and torch.sigmoid's kernel."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.exp(-x).add_(1.0).reciprocal_()
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return torch.ops.aten.sigmoid_backward(g, y)
+
+
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    if x.dtype == torch.bfloat16:
+        return _Logistic.apply(x)
+    return torch.sigmoid(x)
+
+
 class GRU(nn.Module):
     """Unidirectional GRU over axis 1. xs: [B,T,d], mask: [B,T] -> [B,T,f].
 
@@ -36,14 +60,14 @@ class GRU(nn.Module):
         Wx, Wh, b = self.wx.to(dt), self.wh.to(dt), self.b.to(dt)
         # the input projection of every step in one product
         gx_all = (xs.reshape(B * T, d) @ Wx + b).reshape(B, T, -1)
-        h = torch.zeros(B, Wh.shape[0], dtype=dt, device=xs.device)
+        f = Wh.shape[0]
+        h = torch.zeros(B, f, dtype=dt, device=xs.device)
         hs = []
         for t in range(T):
-            xz, xr, xc = gx_all[:, t].chunk(3, dim=-1)
-            hz, hr, hc = (h @ Wh).chunk(3, dim=-1)
-            z = torch.sigmoid(xz + hz)
-            r = torch.sigmoid(xr + hr)
-            c = torch.tanh(xc + r * hc)
+            gx_zr, gx_c = gx_all[:, t].split([2 * f, f], dim=-1)
+            gh_zr, gh_c = (h @ Wh).split([2 * f, f], dim=-1)
+            z, r = _sigmoid(gx_zr + gh_zr).chunk(2, dim=-1)  # one call
+            c = torch.tanh(gx_c + r * gh_c)
             h = torch.where(mask[:, t, None], (1.0 - z) * h + z * c, h)
             hs.append(h)
         return torch.stack(hs, dim=1)

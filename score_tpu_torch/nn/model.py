@@ -1,11 +1,21 @@
-"""The SCoRe model (configs3: full cross-neighbour co-attention).
+"""The SCoRe model family: the configs0-3 rungs of the preset ladder.
 
 Counterpart of score_tpu/nn/model.py:ScoreModel, for serving and for
-training with in-batch negatives (`neg_shift`). Submodule
-and parameter names mirror the flax tree (tables, coattn, gru_u, gru_i,
-pool_u, pool_i, scorer), so `score_tpu_torch.params` maps one onto the
-other. Only configs3, with the sum, mean or max co-attention pool, is
-ported; other configurations raise NotImplementedError.
+training with uniform or in-batch negatives (`neg_shift`). One module
+covers the rungs through ModelConfig's flags:
+
+    configs0  sides='user', slot_agg='mean',   seq_pool='last', shared_table
+    configs1  sides='dual', slot_agg='mean',   seq_pool='attn'
+    configs2  sides='dual', slot_agg='attn',   seq_pool='attn'
+    configs3  sides='dual', slot_agg='coattn', seq_pool='attn'
+
+and any other combination of those flags with the GRU encoder (the
+co-attention needs both sides). Submodule and parameter names mirror the
+flax tree (tables, coattn or slot_attn_u/slot_attn_i, gru_u, gru_i,
+pool_u, pool_i, scorer), and a rung has only the submodules the flax
+model has, so `score_tpu_torch.params` maps one onto the other. The
+baselines (`arch != 'score'`) and the Caser and SASRec encoders raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -16,25 +26,29 @@ import torch
 from torch import nn
 
 from ..config import Config, ModelConfig
-from .coattn import CrossCoAttention, roll_candidates
+from .coattn import (CrossCoAttention, SlotAttention, roll_candidates,
+                     slot_mean)
 from .embed import EmbeddingTables
-from .encoder import GRU, AttnPool
+from .encoder import GRU, AttnPool, last_pool
 from .scorer import Scorer
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for anything but configs3 (any
-    co-attention pool) in f32 or bf16 compute over f32 parameters."""
-    want = dict(arch="score", sides="dual", slot_agg="coattn",
-                seq_encoder="gru", seq_pool="attn")
-    bad = {k: getattr(cfg, k) for k, v in want.items()
+    """Raise NotImplementedError for what the port does not build: the
+    baselines, encoders other than the GRU, compute other than f32 or
+    bf16, and parameters other than f32; ValueError for co-attention on
+    one side, which the reference refuses too."""
+    bad = {k: getattr(cfg, k) for k, v in (("arch", "score"),
+                                            ("seq_encoder", "gru"))
            if getattr(cfg, k) != v}
     if bad or cfg.compute_dtype not in _DTYPES:
         raise NotImplementedError(
-            f"score_tpu_torch ports configs3 with f32 or bf16 compute only; "
-            f"got {bad or cfg.compute_dtype}")
+            f"score_tpu_torch ports the SCoRe model with the GRU encoder in "
+            f"f32 or bf16 compute only; got {bad or cfg.compute_dtype}")
+    if cfg.slot_agg == "coattn" and cfg.sides != "dual":
+        raise ValueError("co-attention requires both sides (sides='dual')")
     # the master weights are f32: the table-gradient scatter-add takes f32
     if cfg.param_dtype != "float32":
         raise NotImplementedError(
@@ -62,7 +76,7 @@ def _nbr_mask(cnt: torch.Tensor, fanout: int,
 
 
 class ScoreModel(nn.Module):
-    """Dual-side neighbour-based sequential scorer (configs3)."""
+    """Neighbour-based sequential scorer (the SCoRe family, configs0-3)."""
 
     def __init__(self, cfg: ModelConfig, num_users: int, num_items: int):
         super().__init__()
@@ -70,65 +84,113 @@ class ScoreModel(nn.Module):
         self.cfg = cfg
         self.num_users, self.num_items = num_users, num_items
         self.compute_dtype = _DTYPES[cfg.compute_dtype]
+        self.dual = cfg.sides == "dual"
         d, f = cfg.embed_dim, cfg.hidden_dim
         self.tables = EmbeddingTables(num_users, num_items, d,
                                       shared=cfg.shared_table)
-        self.coattn = CrossCoAttention(d, pool=cfg.coattn_pool,
-                                       target_aware=cfg.target_aware)
+        if cfg.slot_agg == "coattn":
+            self.coattn = CrossCoAttention(d, pool=cfg.coattn_pool,
+                                           target_aware=cfg.target_aware)
+        elif cfg.slot_agg == "attn":
+            self.slot_attn_u = SlotAttention(d)
+            if self.dual:
+                self.slot_attn_i = SlotAttention(d)
         self.gru_u = GRU(d, f)
-        self.gru_i = GRU(d, f)
-        self.pool_u = AttnPool(f, d)
-        self.pool_i = AttnPool(f, d)
-        self.scorer = Scorer(3 * f + 3 * d, cfg.mlp_dims, self.compute_dtype)
+        if self.dual:
+            self.gru_i = GRU(d, f)
+        if cfg.seq_pool == "attn":
+            self.pool_u = AttnPool(f, d)
+            if self.dual:
+                self.pool_i = AttnPool(f, d)
+        self.scorer = Scorer(scorer_width(cfg), cfg.mlp_dims,
+                             self.compute_dtype)
 
     def forward(self, batch: dict) -> torch.Tensor:
         """Flat (u, i) pairs: the candidates form with C == 1 -> [B]."""
-        cb = dict(batch, cand=batch["item"][:, None],
-                  i_hist=batch["i_hist"][:, None],
-                  i_cnt=batch["i_cnt"][:, None])
+        cb = dict(batch, cand=batch["item"][:, None])
+        if self.dual:
+            cb.update(i_hist=batch["i_hist"][:, None],
+                      i_cnt=batch["i_cnt"][:, None])
         return self.score_candidates(cb)[:, 0]
 
     def score_candidates(self, batch: dict,
                          neg_shift: Optional[Sequence[int]] = None
                          ) -> torch.Tensor:
         """One user vs C candidate items (batch from
-        `graph.gather_candidate_batch`) -> logits [B, C] in f32.
+        `graph.gather_candidate_batch`; with sides='user' the item side's
+        i_hist and i_cnt are not read) -> logits [B, C] in f32.
 
         Lookups gather from the f32 tables and cast after the gather, so
         the tables' gradients arrive in f32. `neg_shift` (k in-batch
         shifts, C == 1 only): candidate c >= 1 of example b is example
         (b + neg_shift[c-1]) mod B's positive, its item side a batch roll
         of the embedded tensors -> logits [B, 1 + k]."""
+        cfg, dual = self.cfg, self.dual
         cdt = self.compute_dtype
         sv = batch["slot_valid"]                                  # [B, T]
         eu = self.tables.user_emb(batch["user"]).to(cdt)          # [B, d]
         ei = self.tables.item_emb(batch["cand"]).to(cdt)          # [B, C, d]
-        i_cnt = batch["i_cnt"]                                    # [B, C, T]
         if neg_shift is not None:
             if ei.shape[1] != 1:
                 raise ValueError(f"neg_shift needs C == 1 candidates, got "
                                  f"C={ei.shape[1]}")
             ei = roll_candidates(ei, neg_shift)
-            i_cnt = roll_candidates(i_cnt, neg_shift)
         B, C = ei.shape[0], ei.shape[1]
         T = sv.shape[1]
         # user side: shared by the candidates
         Eu = self.tables.item_emb(batch["u_hist"]).to(cdt)        # [B,T,n,d]
         mu = _nbr_mask(batch["u_cnt"], Eu.shape[2], sv)           # [B,T,n]
-        # [B,C,T,m,d]; [B,1,T,m,d] before the rolls with neg_shift
-        Ei = self.tables.user_emb(batch["i_hist"]).to(cdt)
-        mi = _nbr_mask(i_cnt, Ei.shape[3], sv[:, None])           # [B,C,T,m]
         eu_c = eu[:, None].expand(B, C, eu.shape[-1])
+        if dual:
+            # [B,C,T,m,d]; [B,1,T,m,d] before the rolls with neg_shift
+            Ei = self.tables.user_emb(batch["i_hist"]).to(cdt)
+            i_cnt = batch["i_cnt"]                                # [B, C, T]
+            if neg_shift is not None:
+                i_cnt = roll_candidates(i_cnt, neg_shift)
+                if cfg.slot_agg != "coattn":    # coattn rolls Ei itself
+                    Ei = roll_candidates(Ei, neg_shift)
+            mi = _nbr_mask(i_cnt, Ei.shape[3], sv[:, None])       # [B,C,T,m]
 
-        cu, ci = self.coattn(Eu, Ei, mu, mi, eu, ei,
-                             i_shifts=neg_shift)                  # [B,C,T,d]
-        # cu depends on the candidate, so the user GRU runs on B*C sequences
-        sv_c = sv[:, None].expand(B, C, T).reshape(B * C, T)
-        hu_seq = self.gru_u(cu.reshape(B * C, T, -1), sv_c).reshape(
-            B, C, T, -1)
-        h_u = self.pool_u(hu_seq, ei, sv)                         # [B,C,f]
-        hi_seq = self.gru_i(ci.reshape(B * C, T, -1), sv_c).reshape(
-            B, C, T, -1)
-        h_i = self.pool_i(hi_seq, eu_c, sv)
-        feats = [h_u, h_i, eu_c, ei, h_u * h_i, eu_c * ei]
+        # per-slot aggregation: cu [B, Cu, T, d] with Cu = 1 where it does
+        # not depend on the candidate (the mean), ci [B, C, T, d]
+        if cfg.slot_agg == "coattn":
+            cu, ci = self.coattn(Eu, Ei, mu, mi, eu, ei, i_shifts=neg_shift)
+        elif cfg.slot_agg == "attn":
+            cu = self.slot_attn_u(Eu[:, None], mu[:, None], ei)
+            if dual:
+                ci = self.slot_attn_i(Ei, mi, eu_c)
+        else:
+            cu = slot_mean(Eu, mu)[:, None]
+            if dual:
+                ci = slot_mean(Ei, mi)
+
+        h_u = self._encode(self.gru_u, getattr(self, "pool_u", None), cu,
+                           ei, sv).expand(B, C, -1)               # [B,C,f]
+        if not dual:
+            feats = [h_u, eu_c, ei, eu_c * ei]
+        else:
+            h_i = self._encode(self.gru_i, getattr(self, "pool_i", None),
+                               ci, eu_c, sv)
+            feats = [h_u, h_i, eu_c, ei, h_u * h_i, eu_c * ei]
         return self.scorer(feats)                                 # [B, C]
+
+    @staticmethod
+    def _encode(gru: GRU, pool: Optional[AttnPool], c: torch.Tensor,
+                query: torch.Tensor, sv: torch.Tensor) -> torch.Tensor:
+        """The GRU over the slots of each of the B*Ch sequences c
+        [B, Ch, T, d], then the attention pool with `query` [B, C, dq] or
+        (pool None) the last valid state -> [B, C, f] (or [B, 1, f] for
+        the last state of a shared sequence)."""
+        B, Ch, T, _ = c.shape
+        sv_c = sv[:, None].expand(B, Ch, T).reshape(B * Ch, T)
+        hs = gru(c.reshape(B * Ch, T, -1), sv_c)                  # [B*Ch,T,f]
+        if pool is not None:
+            return pool(hs.reshape(B, Ch, T, -1), query, sv)
+        return last_pool(hs, sv_c).reshape(B, Ch, -1)
+
+
+def scorer_width(cfg: ModelConfig) -> int:
+    """The scorer's input width: [h_u, eu, ei, eu*ei] on the user side
+    alone, [h_u, h_i, eu, ei, h_u*h_i, eu*ei] with both sides."""
+    d, f = cfg.embed_dim, cfg.hidden_dim
+    return 3 * f + 3 * d if cfg.sides == "dual" else f + 3 * d

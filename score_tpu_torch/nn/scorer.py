@@ -34,7 +34,9 @@ class Scorer(nn.Module):
         x = torch.cat([f.to(cdt) for f in feats], dim=-1)
         for i in range(self.num_hidden):
             layer = getattr(self, f"mlp_{i}")
-            x = F.relu(F.linear(x, layer.weight.to(cdt), layer.bias.to(cdt)))
+            # the bias is added after the product is rounded to the compute
+            # dtype, as flax's Dense does (one fused rounding differs in bf16)
+            x = F.relu(F.linear(x, layer.weight.to(cdt)) + layer.bias.to(cdt))
         logit = F.linear(x.float(), self.out.weight.float(),
                          self.out.bias.float())
         return logit.squeeze(-1)

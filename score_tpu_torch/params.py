@@ -4,8 +4,9 @@ that needs no JAX.
 
 The state_dict keys mirror the flax paths with '.' for '/'. Flax `Dense`
 kernels ([in, out], leaf `kernel`) become torch `Linear` weights
-([out, in], leaf `weight`); every other leaf (tables, Wr/Wtu/Wti, the GRU's
-wx/wh/b, the pooling W, Dense biases) keeps its name and layout.
+([out, in], leaf `weight`); every other leaf (tables, Wr/Wtu/Wti, the slot
+attention's W, the GRU's wx/wh/b, the pooling W, Dense biases) keeps its
+name and layout, whichever rung's tree it is.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 
 from .config import Config
 from .nn.embed import round_up
-from .nn.model import check_supported
+from .nn.model import check_supported, scorer_width
 
 
 def from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
@@ -101,12 +102,16 @@ def _lecun_normal(shape, fan_in: int, g: torch.Generator) -> torch.Tensor:
 
 def init_params(cfg: Config, num_users: int, num_items: int,
                 generator: torch.Generator) -> Dict[str, torch.Tensor]:
-    """Fresh f32 configs3 weights drawn as flax draws them: normal(0.01)
-    tables, lecun-normal GRU and Dense kernels, zero biases and zero
-    attention weights (Wr, Wtu, Wti and the pooling W)."""
+    """Fresh f32 weights of the rung `cfg.model` names, drawn as flax
+    draws them: normal(0.01) tables, lecun-normal GRU and Dense kernels,
+    zero biases and zero attention weights (Wr, Wtu, Wti, the slot
+    attention's and the pooling's W). Only the submodules the rung has
+    get weights, as in the flax tree."""
     m = cfg.model
     check_supported(m)
     d, f = m.embed_dim, m.hidden_dim
+    dual = m.sides == "dual"
+    sides = ("u", "i") if dual else ("u",)
     g = generator
     sd: Dict[str, torch.Tensor] = {}
 
@@ -117,17 +122,20 @@ def init_params(cfg: Config, num_users: int, num_items: int,
     else:
         sd["tables.user_table"] = table(1 + num_users)
         sd["tables.item_table"] = table(1 + num_items)
-    att = ["coattn.wr"] + (["coattn.wtu", "coattn.wti"]
-                           if m.target_aware else [])
-    for name in att:
-        sd[name] = torch.zeros(d, d)
-    for side in ("gru_u", "gru_i"):
-        sd[f"{side}.wx"] = _lecun_normal((d, 3 * f), d, g)
-        sd[f"{side}.wh"] = _lecun_normal((f, 3 * f), f, g)
-        sd[f"{side}.b"] = torch.zeros(3 * f)
-    for side in ("pool_u", "pool_i"):
-        sd[f"{side}.w"] = torch.zeros(f, d)
-    fan_in = 3 * f + 3 * d
+    if m.slot_agg == "coattn":
+        for name in ["wr"] + (["wtu", "wti"] if m.target_aware else []):
+            sd[f"coattn.{name}"] = torch.zeros(d, d)
+    elif m.slot_agg == "attn":
+        for s in sides:
+            sd[f"slot_attn_{s}.w"] = torch.zeros(d, d)
+    for s in sides:
+        sd[f"gru_{s}.wx"] = _lecun_normal((d, 3 * f), d, g)
+        sd[f"gru_{s}.wh"] = _lecun_normal((f, 3 * f), f, g)
+        sd[f"gru_{s}.b"] = torch.zeros(3 * f)
+    if m.seq_pool == "attn":
+        for s in sides:
+            sd[f"pool_{s}.w"] = torch.zeros(f, d)
+    fan_in = scorer_width(m)
     for i, w in enumerate(list(m.mlp_dims) + [1]):
         name = f"scorer.mlp_{i}" if i < len(m.mlp_dims) else "scorer.out"
         sd[f"{name}.weight"] = _lecun_normal((fan_in, w), fan_in, g).T

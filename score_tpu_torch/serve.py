@@ -1,4 +1,5 @@
-"""Online scoring service over the configs3 model and the device graph.
+"""Online scoring service over the SCoRe model (configs0-3) and the device
+graph.
 
 Counterpart of score_tpu/serve.py:ScoringService (score, score_batch,
 topk, topk_batch, from_checkpoint):
@@ -100,7 +101,8 @@ class ScoringService:
         slots = np.full(rb, self.slot, np.int32)
         mb = gather_candidate_batch(
             self.graph, *(torch.from_numpy(a).to(self.device)
-                          for a in (pu, pi, slots)))
+                          for a in (pu, pi, slots)),
+            item_side=self.model.dual)
         return self.model.score_candidates(mb)
 
     def _check_ids(self, users: np.ndarray, items: np.ndarray) -> None:

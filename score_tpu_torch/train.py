@@ -1,12 +1,14 @@
-"""Training: the configs3 train step, a K-step loop, streaming eval, and
-the train/eval driver with checkpoints and its CLI.
+"""Training: the train step of the configs0-3 rungs, a K-step loop,
+streaming eval, and the train/eval driver with checkpoints and its CLI.
 
 Counterpart of score_tpu/train.py (make_optimizer, item_importance_weights,
-_table_l2, the train step of _make_train_step_fn with in-batch negatives
-and stride-K table updates, the train loop, make_eval_step, _eval_accum,
-evaluate, train and main) for the path `bench.py` trains: in-batch
-importance-weighted negatives, Adam at a constant learning rate,
-`table_update_every` and `table_lr_boost`; any co-attention pool:
+_table_l2, _resample_collisions, the train step of _make_train_step_fn with
+uniform or in-batch negatives and stride-K table updates, the train loop,
+make_eval_step, _eval_accum, evaluate, train and main): uniform negatives
+with collision resampling (every preset's default) or in-batch
+(importance-weighted) ones, Adam at a constant learning rate,
+`table_update_every` and `table_lr_boost`; any rung of the preset ladder
+and any co-attention pool:
 
     out = train(cfg, ds, device="cuda")    # epochs, val, early stop, test
 
@@ -26,9 +28,10 @@ Everything runs on `device`, the CUDA card unless the caller asks for
 another. The parameters and Adam moments are updated in place. The step
 never waits for the device: metrics come back as device tensors.
 
-Left out, and refused where a config asks for them: uniform negatives,
-neighbour re-sampling, optimizers other than Adam, learning-rate
-schedules, scorer dropout, sharded layouts and non-f32 parameters.
+Left out, and refused where a config asks for them: neighbour
+re-sampling, optimizers other than Adam, learning-rate schedules, scorer
+dropout, sharded layouts, non-f32 parameters, the baselines and the Caser
+and SASRec encoders.
 """
 
 from __future__ import annotations
@@ -162,8 +165,8 @@ def table_l2(model: torch.nn.Module) -> torch.Tensor:
 @dataclasses.dataclass
 class TrainState:
     """The model (f32 master weights), its optimizer and the host-side
-    step counter; `generator` draws the in-batch shifts a step is not
-    given."""
+    step counter; `generator` draws the in-batch shifts or the uniform
+    negatives a step is not given."""
 
     cfg: Config
     model: ScoreModel
@@ -179,10 +182,6 @@ class TrainState:
 def check_trainable(cfg: Config) -> None:
     """Raise NotImplementedError for what the port does not train yet."""
     check_config(cfg)
-    if cfg.data.train_neg_mode not in ("inbatch", "inbatch_iw"):
-        raise NotImplementedError(
-            f"score_tpu_torch trains with in-batch negatives only; got "
-            f"train_neg_mode={cfg.data.train_neg_mode!r}")
     if cfg.data.neighbor_resample:
         raise NotImplementedError("neighbor_resample is not ported yet")
     if cfg.model.dropout > 0:
@@ -219,14 +218,42 @@ def draw_shifts(generator: torch.Generator, k: int, B: int) -> List[int]:
     return (torch.randperm(hi - 1, generator=generator)[:k] + 1).tolist()
 
 
+def _step_generator(seed: int, step: int) -> torch.Generator:
+    # the counterpart of the reference's fold_in(PRNGKey(seed), step)
+    return torch.Generator().manual_seed(((seed & 0xFFFFFFFF) << 32)
+                                         | (step & 0xFFFFFFFF))
+
+
 def step_shifts(seed: int, step: int, k: int, B: int) -> List[int]:
     """The shifts `train` draws for step `step` by default: from a
-    generator seeded by (seed, step), the counterpart of the reference's
-    fold_in(PRNGKey(seed), step), so a resumed run draws the same shifts
-    with no generator state in its checkpoint."""
-    g = torch.Generator().manual_seed(((seed & 0xFFFFFFFF) << 32)
-                                      | (step & 0xFFFFFFFF))
-    return draw_shifts(g, k, B)
+    generator seeded by (seed, step), so a resumed run draws the same
+    shifts with no generator state in its checkpoint."""
+    return draw_shifts(_step_generator(seed, step), k, B)
+
+
+def draw_negatives(generator: torch.Generator, B: int, k: int,
+                   num_items: int) -> torch.Tensor:
+    """[B, k] int32 iid uniform item ids in [1, num_items] on the host, as
+    the reference draws them (with its own random bits): the raw draws,
+    before `resample_collisions`."""
+    return torch.randint(1, num_items + 1, (B, k), generator=generator,
+                         dtype=torch.int32)
+
+
+def step_negatives(seed: int, step: int, B: int, k: int,
+                   num_items: int) -> torch.Tensor:
+    """The uniform negatives `train` draws for step `step` by default, from
+    the generator `step_shifts` seeds: a resumed run draws the same ones."""
+    return draw_negatives(_step_generator(seed, step), B, k, num_items)
+
+
+def resample_collisions(neg: torch.Tensor, pos: torch.Tensor,
+                        num_items: int) -> torch.Tensor:
+    """A negative equal to its positive moves to the next id, and one past
+    num_items wraps to 1 (id 0 is the pad item)."""
+    shifted = neg + (neg == pos).to(neg.dtype)
+    return torch.where(shifted > num_items, torch.ones_like(shifted),
+                       shifted)
 
 
 def _as_device(x, device) -> torch.Tensor:
@@ -237,44 +264,70 @@ def _as_device(x, device) -> torch.Tensor:
 def train_step(state: TrainState, graph: DeviceGraph, batch: Mapping,
                shifts: Optional[Sequence[int]] = None,
                neg_iw: Optional[torch.Tensor] = None,
-               with_auc: bool = True) -> Tuple[TrainState, Dict]:
-    """One step on batch {user, item, slot} [B]: in-batch negatives from
-    `shifts` (k ints in [1, B); drawn from state.generator if None), the
-    weighted BCE plus L2 on the tables, gradients and Adam. Tables and
-    their moments update only on steps with step % table_update_every ==
-    0; on the others no table gradient is computed at all (the
-    reference's stop_gradient). Returns the state (updated in place) and
-    {loss, batch_auc} (or {loss, logits, weights} without AUC), as device
-    tensors."""
+               with_auc: bool = True, negatives=None
+               ) -> Tuple[TrainState, Dict]:
+    """One step on batch {user, item, slot} [B]: the negatives of
+    cfg.data.train_neg_mode, the BCE plus L2 on the tables, gradients and
+    Adam.
+
+    'uniform': `negatives` are the raw [B, k] draws in [1, num_items]
+    (drawn from state.generator if None); a draw equal to its positive is
+    moved by `resample_collisions`, and [positive | k negatives] are
+    scored in the candidates form, each negative with its own item-side
+    history, all weights 1. 'inbatch' and 'inbatch_iw': in-batch negatives
+    from `shifts` (k ints in [1, B); drawn from state.generator if None),
+    a rolled positive equal to the example's own dropping out of the
+    weighted BCE, importance-weighted by `neg_iw` with 'inbatch_iw'.
+
+    Tables and their moments update only on steps with step %
+    table_update_every == 0; on the others no table gradient is computed
+    at all (the reference's stop_gradient). Returns the state (updated in
+    place) and {loss, batch_auc} (or {loss, logits, weights} without AUC),
+    as device tensors."""
     cfg, model = state.cfg, state.model
     dev = state.device
     k = cfg.data.num_train_neg
     u, i, t = (_as_device(batch[key], dev) for key in ("user", "item",
                                                         "slot"))
     B = u.shape[0]
-    if shifts is None:
-        shifts = draw_shifts(state.generator, k, B)
-    shifts = [int(s) for s in shifts]
-    if len(shifts) != k:
-        raise ValueError(f"{len(shifts)} shifts for {k} negatives")
     labels = torch.cat([torch.ones(B, 1, device=dev),
                         torch.zeros(B, k, device=dev)], dim=1)
-    negs = torch.stack([torch.roll(i, -s, 0) for s in shifts], dim=1)
-    # a rolled positive equal to the example's own positive drops out
-    neg_w = (negs != i[:, None]).float()
-    if cfg.data.train_neg_mode == "inbatch_iw":
-        if neg_iw is None:
-            raise ValueError("inbatch_iw needs neg_iw = "
-                             "item_importance_weights(ds.train, ...)")
-        neg_w = neg_w * neg_iw.to(dev)[negs.long()]
-    weights = torch.cat([torch.ones(B, 1, device=dev), neg_w], dim=1)
+    if cfg.data.train_neg_mode == "uniform":
+        if negatives is None:
+            negatives = draw_negatives(state.generator, B, k,
+                                       model.num_items)
+        neg = _as_device(negatives, dev)
+        if neg.shape != (B, k):
+            raise ValueError(f"negatives of shape {tuple(neg.shape)}; "
+                             f"expected {(B, k)}")
+        neg = resample_collisions(neg, i[:, None], model.num_items)
+        cand = torch.cat([i[:, None], neg], dim=1)
+        shifts = weights = None
+    else:
+        if shifts is None:
+            shifts = draw_shifts(state.generator, k, B)
+        shifts = [int(s) for s in shifts]
+        if len(shifts) != k:
+            raise ValueError(f"{len(shifts)} shifts for {k} negatives")
+        negs = torch.stack([torch.roll(i, -s, 0) for s in shifts], dim=1)
+        # a rolled positive equal to the example's own positive drops out
+        neg_w = (negs != i[:, None]).float()
+        if cfg.data.train_neg_mode == "inbatch_iw":
+            if neg_iw is None:
+                raise ValueError("inbatch_iw needs neg_iw = "
+                                 "item_importance_weights(ds.train, ...)")
+            neg_w = neg_w * neg_iw.to(dev)[negs.long()]
+        weights = torch.cat([torch.ones(B, 1, device=dev), neg_w], dim=1)
+        cand = i[:, None]
 
     stride = cfg.train.table_update_every
     full = stride <= 1 or state.step % stride == 0
     names = [n for n, _ in model.named_parameters() if full or not is_table(n)]
-    mb = gather_candidate_batch(graph, u, i[:, None], t)
+    mb = gather_candidate_batch(graph, u, cand, t, item_side=model.dual)
     logits = model.score_candidates(mb, neg_shift=shifts)
     loss = bce_loss(logits, labels, weights)
+    if weights is None:     # the monitoring AUC's weights
+        weights = torch.ones_like(labels)
     total = loss
     if full and cfg.train.l2_emb > 0:
         total = loss + cfg.train.l2_emb * table_l2(model)
@@ -295,19 +348,22 @@ def train_step(state: TrainState, graph: DeviceGraph, batch: Mapping,
 def train_loop(state: TrainState, graph: DeviceGraph,
                batches: Sequence[Mapping],
                shifts_list: Optional[Sequence[Sequence[int]]] = None,
-               neg_iw: Optional[torch.Tensor] = None
+               neg_iw: Optional[torch.Tensor] = None,
+               negatives_list: Optional[Sequence] = None
                ) -> Tuple[TrainState, Dict]:
-    """K steps, one per batch, each as `train_step` (the same results as K
-    sequential calls); the batch AUC once, from the last step's logits,
-    as the reference's fused loop reports it. Returns the state and
-    {loss [K], batch_auc [1]} as device tensors."""
+    """K steps, one per batch, each as `train_step` with the j-th shifts or
+    raw uniform negatives (the same results as K sequential calls); the
+    batch AUC once, from the last step's logits, as the reference's fused
+    loop reports it. Returns the state and {loss [K], batch_auc [1]} as
+    device tensors."""
     if not batches:
         raise ValueError("train_loop needs at least one batch")
     losses = []
     for j, batch in enumerate(batches):
         shifts = None if shifts_list is None else shifts_list[j]
+        negs = None if negatives_list is None else negatives_list[j]
         state, m = train_step(state, graph, batch, shifts, neg_iw,
-                              with_auc=False)
+                              with_auc=False, negatives=negs)
         losses.append(m["loss"])
     labels = torch.zeros_like(m["logits"])
     labels[:, 0] = 1.0
@@ -335,7 +391,7 @@ def make_eval_step(model: ScoreModel) -> Callable:
     def eval_step(graph: DeviceGraph, batch: Mapping) -> torch.Tensor:
         cand = torch.cat([batch["item"][:, None], batch["neg"]], dim=1)
         mb = gather_candidate_batch(graph, batch["user"], cand,
-                                    batch["slot"])
+                                    batch["slot"], item_side=em.dual)
         return em.score_candidates(mb)
 
     @torch.no_grad()
@@ -415,17 +471,29 @@ def _append_row(path: Optional[str], row: dict) -> None:
             f.write(json.dumps(row) + "\n")
 
 
-def _stage_batches(it: TargetIterator, k: int, device
+def _stage_batches(it: TargetIterator, k: int, device, negatives=None
                    ) -> List[Dict[str, torch.Tensor]]:
-    """The next k host batches as rows of one [k, B] device array per
-    column: one host-to-device copy a chunk, as the reference's
+    """The next k host batches, and with `negatives` (k raw [B, n] uniform
+    draws) each step's under the key 'neg', as views of one int32 device
+    array: one host-to-device copy a chunk, as the reference's
     _stack_batches stages its fused loop's batches. (A copy from pageable
     host memory waits for the device, so a copy a step would keep the host
     from running ahead of it.)"""
     host = [next(it) for _ in range(k)]
-    cols = {key: torch.from_numpy(np.stack([b[key] for b in host])).to(device)
-            for key in host[0]}
-    return [{key: v[j] for key, v in cols.items()} for j in range(k)]
+    if negatives is not None:
+        host = [dict(b, neg=n) for b, n in zip(host, negatives)]
+    shapes = {key: np.shape(v) for key, v in host[0].items()}
+    flat = np.stack([np.concatenate([np.asarray(b[key], np.int32).reshape(-1)
+                                     for key in shapes]) for b in host])
+    buf = torch.from_numpy(flat).to(device)
+    out = [{} for _ in range(k)]
+    lo = 0
+    for key, shape in shapes.items():
+        w = int(np.prod(shape))
+        for j in range(k):
+            out[j][key] = buf[j, lo:lo + w].view(shape)
+        lo += w
+    return out
 
 
 def _start_profiler(dev: torch.device):
@@ -448,7 +516,8 @@ def _export_trace(prof, directory: str, step: int) -> None:
 def train(cfg: Config, ds: Dataset, verbose: bool = True,
           log_path: Optional[str] = None, *, device="cuda",
           parity_state_dict: Optional[Mapping[str, torch.Tensor]] = None,
-          parity_shifts_fn: Optional[Callable[[int, int], List[int]]] = None
+          parity_shifts_fn: Optional[Callable[[int, int], List[int]]] = None,
+          parity_negatives_fn: Optional[Callable[[int, int], object]] = None
           ) -> Dict:
     """Epoch loop with periodic validation, early stop on val AUC, best
     parameters kept, final test metrics: the reference's train(), its log
@@ -456,7 +525,9 @@ def train(cfg: Config, ds: Dataset, verbose: bool = True,
 
     Weights start from params.init_params seeded by cfg.train.seed; the
     steps run in chunks of up to 50 through `train_loop`, cut at every val
-    and log boundary, each step's in-batch shifts from `step_shifts`. Val
+    and log boundary, each step's in-batch shifts from `step_shifts` or
+    its uniform negatives from `step_negatives` (staged with the chunk's
+    batches). Val
     runs every min(eval_every_steps, steps_per_epoch) steps and at the
     last, on eval_max_targets targets, through one resident eval step
     refreshed with the current weights. With cfg.train.checkpoint_dir,
@@ -466,9 +537,11 @@ def train(cfg: Config, ds: Dataset, verbose: bool = True,
     With cfg.train.profile_dir, a torch.profiler window over steps 10-30
     writes a Chrome trace there.
 
-    `parity_state_dict` and `parity_shifts_fn(step, B)` are for parity
-    tests only: the initial weights and each step's shifts in place of the
-    defaults (a test hands in the JAX package's init and draws).
+    `parity_state_dict`, `parity_shifts_fn(step, B)` and
+    `parity_negatives_fn(step, B)` are for parity tests only: the initial
+    weights and each step's shifts or raw [B, k] uniform negatives in
+    place of the defaults (a test hands in the JAX package's init and
+    draws).
 
     Returns {best_val_auc, best_step, test, history, params, steps_run} as
     the reference does (params: the best weights as a state_dict on
@@ -489,8 +562,11 @@ def train(cfg: Config, ds: Dataset, verbose: bool = True,
         neg_iw = torch.from_numpy(
             item_importance_weights(ds.train, ds.num_items)).to(dev)
     k_neg, B = cfg.data.num_train_neg, tc.batch_size
+    uniform = cfg.data.train_neg_mode == "uniform"
     shifts_fn = parity_shifts_fn or (
         lambda s, b: step_shifts(tc.seed, s, k_neg, b))
+    negatives_fn = parity_negatives_fn or (
+        lambda s, b: step_negatives(tc.seed, s, b, k_neg, ds.num_items))
     eval_step = make_eval_step(state.model)
 
     steps_per_epoch = it.steps_per_epoch
@@ -533,11 +609,23 @@ def train(cfg: Config, ds: Dataset, verbose: bool = True,
     while step < total_steps:
         chunk = min(next_boundary(step) - step, 50)
         if chunk > 1 and not tc.profile_dir:
-            batches = _stage_batches(it, chunk, dev)
-            shifts = [shifts_fn(step + j, B) for j in range(chunk)]
-            state, ms = train_loop(state, graph, batches, shifts, neg_iw)
+            if uniform:
+                batches = _stage_batches(
+                    it, chunk, dev,
+                    [negatives_fn(step + j, B) for j in range(chunk)])
+                state, ms = train_loop(
+                    state, graph, batches, neg_iw=neg_iw,
+                    negatives_list=[b.pop("neg") for b in batches])
+            else:
+                batches = _stage_batches(it, chunk, dev)
+                shifts = [shifts_fn(step + j, B) for j in range(chunk)]
+                state, ms = train_loop(state, graph, batches, shifts, neg_iw)
             m = {"loss": ms["loss"][-1], "batch_auc": ms["batch_auc"][0]}
             step += chunk
+        elif uniform:
+            state, m = train_step(state, graph, next(it), neg_iw=neg_iw,
+                                  negatives=negatives_fn(step, B))
+            step += 1
         else:
             state, m = train_step(state, graph, next(it),
                                   shifts_fn(step, B), neg_iw)

@@ -450,3 +450,81 @@ def test_resumed_driver_on_card_matches_straight(cuda, tmp_path):
         close(got, want, 256, ("auc", "ndcg@10", "hr@10", "mrr", "loss"))
     close(second["test"], straight["test"], len(ds.test),
           ("auc", "ndcg@10", "hr@10", "mrr"))
+
+
+@pytest.mark.parametrize("rung", ["configs0", "configs1", "configs2",
+                                  "configs3"])
+def test_uniform_step_on_card_matches_cpu(cuda, rung):
+    """One full step (tables included) of each rung with its preset's
+    uniform negatives, f32, on the card and on the CPU from the same
+    weights (the zero-initialised attention weights made non-zero), batch
+    and raw negatives, some of them equal to their positive: the loss to
+    1e-5 and the parameters to rtol 1e-4 / atol 1e-5, as chip_smoke.py
+    holds 3 steps (the scatter-add's atomics sum in no fixed order)."""
+    from score_tpu_torch.config import PRESETS
+    from score_tpu_torch.data.pipeline import TargetIterator
+    from score_tpu_torch.graph import device_graph
+    from score_tpu_torch.params import init_params
+    from score_tpu_torch.train import draw_negatives, init_state, train_step
+    ds = _small_dataset()
+    cfg = PRESETS[rung]()
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, batch_size=256))
+    assert cfg.data.train_neg_mode == "uniform"
+    gen = torch.Generator().manual_seed(0)
+    sd = init_params(cfg, ds.num_users, ds.num_items, gen)
+    for k in sd:
+        if k.startswith("coattn.") or k.endswith(".w"):
+            sd[k] = torch.randn(sd[k].shape, generator=gen) * 0.3
+    batch = next(TargetIterator(ds.train, 256))
+    negs = draw_negatives(gen, 256, cfg.data.num_train_neg, ds.num_items)
+    negs[:16, 0] = torch.from_numpy(batch["item"][:16])   # collisions
+    out = {}
+    for device in (cuda, torch.device("cpu")):
+        st = init_state(cfg, ds.num_users, ds.num_items, sd, device=device)
+        st, m = train_step(st, device_graph(ds.graph, device), batch,
+                           negatives=negs)
+        out[device.type] = (m["loss"].item(), {
+            k: v.detach().cpu() for k, v in st.model.named_parameters()})
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5,
+                               atol=1e-6)
+    for k, want in out["cpu"][1].items():
+        torch.testing.assert_close(out["cuda"][1][k], want, rtol=1e-4,
+                                   atol=1e-5, msg=k)
+
+
+def test_shared_table_gather_and_scatter(cuda):
+    """configs0's one shared table of round_up(1 + items + users) rows:
+    user ids offset by num_items, gathered by the kernel against
+    index_select of the offset ids, and the table's gradient by the
+    scatter-add kernel against index_add of the same rows."""
+    from score_tpu_torch.nn.embed import EmbeddingTables, round_up
+    U, I, d = 5000, 9000, 32
+    tables = EmbeddingTables(U, I, d, shared=True).to(cuda)
+    assert tables.table.shape == (round_up(1 + I + U), d)
+    rng = np.random.default_rng(0)
+    with torch.no_grad():
+        tables.table.copy_(torch.from_numpy(
+            rng.normal(size=tables.table.shape).astype(np.float32)))
+    users = torch.from_numpy(rng.integers(0, U + 1, (4096,)).astype(
+        np.int32)).to(cuda)
+    items = torch.from_numpy(rng.integers(0, I + 1, (512, 9, 10)).astype(
+        np.int32)).to(cuda)
+    before = (tgather.gather_rows.launches, tgather.scatter_add_rows.launches)
+    eu, ei = tables.user_emb(users), tables.item_emb(items)
+    rows = torch.where(users > 0, users + I, 0).long()
+    assert torch.equal(eu, torch.index_select(tables.table, 0, rows))
+    assert torch.equal(ei, torch.index_select(
+        tables.table, 0, items.reshape(-1).long()).view(512, 9, 10, d))
+    du = torch.from_numpy(rng.integers(-8, 9, (4096, d)).astype(
+        np.float32)).to(cuda)
+    di = torch.from_numpy(rng.integers(-8, 9, (512, 9, 10, d)).astype(
+        np.float32)).to(cuda)
+    grad, = torch.autograd.grad((eu * du).sum() + (ei * di).sum(),
+                                [tables.table])
+    torch.cuda.synchronize()
+    assert (tgather.gather_rows.launches,
+            tgather.scatter_add_rows.launches) == (before[0] + 2,
+                                                   before[1] + 2)
+    want = torch.zeros_like(tables.table).index_add_(0, rows, du)
+    want.index_add_(0, items.reshape(-1).long(), di.reshape(-1, d))
+    assert torch.equal(grad, want)    # integer-valued sums: exact

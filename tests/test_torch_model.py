@@ -189,8 +189,8 @@ def test_service_refuses_out_of_range_ids(tiny_dataset):
 
 
 @pytest.mark.parametrize("over", [dict(seq_encoder="selfattn"),
-                                  dict(slot_agg="mean"),
-                                  dict(seq_pool="last")])
+                                  dict(seq_encoder="caser"),
+                                  dict(arch="mf")])
 def test_model_outside_slice_raises(tiny_dataset, over):
     with pytest.raises(NotImplementedError):
         ScoreModel(_cfg(**over).model, tiny_dataset.num_users,

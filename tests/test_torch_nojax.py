@@ -4,9 +4,10 @@ import jax, flax, optax, orbax, pandas or anything of score_tpu, build a
 dataset with the port's own host layer, score one request and take two
 train steps on the CPU, with the sum pool and with the max pool, evaluate
 the validation split, and run the training CLI from a raw CSV log to its
-test line. And the port's copies of that host layer (config presets, the
-synthetic generator, dataset prep and its CSV reader, the batch iterator)
-give what the JAX package's give."""
+test line (configs3, and configs0 with its preset's uniform negatives).
+And the port's copies of that host layer (config presets, the synthetic
+generator, dataset prep and its CSV reader, the batch iterator) give
+what the JAX package's give."""
 
 import dataclasses
 import os
@@ -28,7 +29,7 @@ from score_tpu_torch.data import prep_common as tprep
 from score_tpu_torch.data import prep_datasets as tprep_ds
 from score_tpu_torch.data import synth as tsynth
 
-SCRIPT = r"""
+BLOCK = r"""
 import importlib.abc
 import sys
 
@@ -43,7 +44,9 @@ class Refuse(importlib.abc.MetaPathFinder):
 
 
 sys.meta_path.insert(0, Refuse())
+"""
 
+SCRIPT = BLOCK + r"""
 import numpy as np
 import torch
 
@@ -122,12 +125,56 @@ print("SERVED", scores.tolist(), "TRAINED", losses, "EVALUATED", metrics,
 """
 
 
-def test_port_serves_and_trains_without_jax(tmp_path):
+# the configs0 CLI with the preset's own (uniform) negatives: it preps the
+# ccmr dataset from a raw log at its default path, trains one epoch, tests
+CLI_CONFIGS0 = BLOCK + r"""
+import contextlib
+import io
+import os
+import runpy
+import tempfile
+
+import torch
+
+torch.set_num_threads(2)
+from score_tpu_torch.data import synth
+from score_tpu_torch.data.prep_datasets import default_raw_path
+
+synth.write_raw("ccmr", default_raw_path("ccmr"), num_users=100,
+                num_items=200, num_events=4000, num_slots=8, seed=0)
+work = tempfile.mkdtemp()
+sys.argv = ["score_tpu_torch.train", "configs0", os.path.join(work, "data"),
+            "--device", "cpu", "model.embed_dim=8", "model.hidden_dim=8",
+            "model.mlp_dims=16,8", "data.user_fanout=3", "data.item_fanout=3",
+            "data.num_eval_neg=5", "train.batch_size=32",
+            "train.num_epochs=1", "train.eval_max_targets=64"]
+cli = io.StringIO()
+with contextlib.redirect_stdout(cli):
+    runpy.run_module("score_tpu_torch.train", run_name="__main__")
+test_line = [l for l in cli.getvalue().splitlines() if l.startswith("test:")]
+assert len(test_line) == 1, cli.getvalue()
+loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+assert not loaded, loaded
+print("CLI", test_line[0])
+"""
+
+
+def _run_blocked(script, tmp_path):
     root = Path(__file__).resolve().parents[1]
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["TMPDIR"] = str(tmp_path)
-    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=root, env=env,
+    return subprocess.run([sys.executable, "-c", script], cwd=root, env=env,
                           capture_output=True, text=True, timeout=300)
+
+
+def test_cli_trains_configs0_without_jax(tmp_path):
+    proc = _run_blocked(CLI_CONFIGS0, tmp_path)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "CLI test: auc" in proc.stdout, proc.stdout
+
+
+def test_port_serves_and_trains_without_jax(tmp_path):
+    proc = _run_blocked(SCRIPT, tmp_path)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.startswith("SERVED"), proc.stdout
     assert "TRAINED" in proc.stdout, proc.stdout
@@ -194,6 +241,22 @@ def test_prep_taobao_equal(tmp_path):
               min_item=3, num_eval_neg=7, seed=1)
     tds = tprep_ds.prep_taobao(str(tmp_path / "port"), raw_path=raw, **kw)
     jds = jprep_ds.prep_taobao(str(tmp_path / "ref"), raw_path=raw, **kw)
+    _assert_same_dataset(tds, jds)
+    assert tds.meta == jds.meta
+
+
+@pytest.mark.parametrize("dataset", ["ccmr", "tmall"])
+def test_prep_ccmr_and_tmall_equal(tmp_path, dataset):
+    """The other presets' datasets (configs0 trains ccmr, configs2 tmall):
+    the port's PREP entry and the reference's on one synthesized raw log
+    of that dataset's columns give equal datasets."""
+    raw = tsynth.write_raw(dataset, str(tmp_path / "raw.csv"),
+                           num_users=120, num_items=240, num_events=5000,
+                           num_slots=6, seed=3)
+    kw = dict(num_slots=6, user_fanout=4, item_fanout=3, min_user=3,
+              min_item=3, num_eval_neg=7, seed=1)
+    tds = tprep_ds.PREP[dataset](str(tmp_path / "port"), raw_path=raw, **kw)
+    jds = jprep_ds.PREP[dataset](str(tmp_path / "ref"), raw_path=raw, **kw)
     _assert_same_dataset(tds, jds)
     assert tds.meta == jds.meta
 
