@@ -142,15 +142,12 @@ def run(path: str, code: str) -> dict:
     return res
 
 
-def main() -> int:
-    if len(sys.argv) != 3:
-        print(__doc__, file=sys.stderr)
-        return 2
-    a, b = sys.argv[1:]
-    card = card_line()
-    code = run_code(FWD_SHAPES, BWD_SHAPES)
+def in_turns(a: str, b: str, code: str, pairs: int = PAIRS) -> dict:
+    """`pairs` pairs of runs of `code` in checkouts a and b (A B, then B A,
+    ...); for every key of the runs' results each side's times in run
+    order, their medians and the ratio of A's median to B's."""
     runs = {a: [], b: []}
-    for i in range(PAIRS):
+    for i in range(pairs):
         for d in (a, b) if i % 2 == 0 else (b, a):
             runs[d].append(run(d, code))
     shapes = {}
@@ -160,6 +157,16 @@ def main() -> int:
         ma, mb = statistics.median(ta), statistics.median(tb)
         shapes[key] = {a: ta, b: tb, "median_" + a: ma, "median_" + b: mb,
                        "a_over_b": ma / mb}
+    return shapes
+
+
+def main() -> int:
+    if len(sys.argv) != 3:
+        print(__doc__, file=sys.stderr)
+        return 2
+    a, b = sys.argv[1:]
+    card = card_line()
+    shapes = in_turns(a, b, run_code(FWD_SHAPES, BWD_SHAPES))
     print(json.dumps({"card": card, "pairs": PAIRS, "iters": ITERS,
                       "replays": REPLAYS, "shapes": shapes}))
     return 0

@@ -31,7 +31,14 @@ fails or no CUDA device is present.
    For every kernel: CUDA-event times of kernel, plain version and, where
    one PyTorch call computes the same function, that call; and the bound,
    the least time the card could take for the work (bytes over 3.35 TB/s
-   or f32 operations over 67 TFLOP/s, whichever is larger).
+   or f32 operations over 67 TFLOP/s, whichever is larger). The gather is
+   timed eagerly (what a step pays; below ~0.03 ms the host's time) and
+   by CUDA graph (the kernel alone), `index_select` beside it both ways.
+2c. [coattn_wide]: the wide co-attention kernels (csrc/coattn_wide.cu,
+   past d, n, m = 32) through the public wrappers, forward for each pool
+   and backward for sum and mean, against their plain versions at
+   configs3's d=64 training, eval and serving shapes, d=128 at training
+   and d=32 with n = m = 40 rows; the tuned kernels must not launch.
 3. Serving, for each co-attention pool (sum, max, mean): ScoringService on
    the configs3 model at the benchmark's width (bench.py: d=32, hidden 64,
    MLP 128/64, T=9, n=m=10, bf16 compute) over a synthetic 50k-user /
@@ -55,6 +62,14 @@ fails or no CUDA device is present.
    steps of a small f32 model (configs3's default widths, batch 256) on
    the card and on the CPU from the same weights, batches and shifts must
    agree.
+4b. [d64]: configs3 at d=64 (hidden 64, MLP 128/64, bf16, B=4096,
+   in-batch IW, as scripts/perf_sweep.py trains b4096_bf16_iw_d64) with
+   each pool, then at d=128 with the sum pool, through the wide kernels
+   (launch counters: the wide ones above 0, the tuned co-attention ones
+   at 0): serving (score, score_batch, topk; 4 x 256 against the CPU in
+   f32 and bf16; score's p50), 20 training steps (max: 10) in which the
+   loss must fall (the d=64 sum pool profiled), and 3 steps at batch 256
+   in f32 on the card and on the CPU.
 5. Eval: the streaming `evaluate` of the max-pool model at the bench
    width, bf16, batch 256, over 8192 validation targets x (1 + 100)
    candidates: targets/s and the metrics; and in f32 on 512 targets, the
@@ -100,7 +115,8 @@ largest error against the plain version, and its, the plain version's and
 the library call's time beside its bound (the candidates forward also
 gives its time and bound at the training shape, B=4096 C=2, where its
 launches are counted, and the per-pair forward its mean pool's there, by
-CUDA graph); the last line is
+CUDA graph; the wide kernels their d=64 training shape's, sum pool, with
+the launches of the [d64] sum-pool run); the last line is
 {"ok": true, "device": {...}}. Every timing line carries the card's name
 and power limit.
 """
@@ -135,6 +151,7 @@ BF16_TOL = 2e-2
 CPU_TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
            "bfloat16": dict(rtol=2e-2, atol=2e-3)}
 TRAIN_CPU_TOL = dict(rtol=1e-4, atol=1e-5)
+LOSS_TOL = dict(rtol=1e-5, atol=1e-6)     # f32 losses, card against CPU
 EVAL_TOL, EVAL_AUC_TOL = 1e-4, 1e-3
 # the card's published peaks (H100 SXM): HBM bytes/s, f32 outside the
 # tensor cores (the kernels here do f32 FMAs on the CUDA cores)
@@ -289,9 +306,10 @@ def phase_device(card: str) -> None:
 
 # --- phase 2: forward kernels ----------------------------------------------
 
-def phase_gather(card: str, dev, gen) -> dict:
-    from score_tpu_torch.kernels.gather import gather_rows, gather_rows_plain
-    cases = [  # (label, table, ids); shapes as serving and training give
+def gather_cases(gen, dev) -> list:
+    """(label, table, ids shape) of the gather at the shapes serving,
+    training and uniform negatives give it, and at a few other sizes."""
+    return [
         ("bf16 [100032,32] ids [16,4096,9,10]",
          torch.randn(100032, D, generator=gen, device=dev).bfloat16(),
          (16, 4096, T, FAN)),
@@ -317,9 +335,21 @@ def phase_gather(card: str, dev, gen) -> dict:
          torch.randint(0, 1 << 30, (150000, T), generator=gen, device=dev,
                        dtype=torch.int32), (65537,)),
     ]
+
+
+GATHER_ROUNDS = 5
+
+
+def phase_gather(card: str, dev, gen) -> dict:
+    """Each case exact against the plain version; timed eagerly (`cuda_ms`:
+    back-to-back wrapper calls, what a step pays, the host's time where it
+    outlasts the kernel's; the median of GATHER_ROUNDS rounds taken in
+    turns with `index_select`'s), by CUDA graph (the kernel alone), and
+    beside them `index_select` eagerly and by graph."""
+    from score_tpu_torch.kernels.gather import gather_rows, gather_rows_plain
     worst = 0.0
     line = None
-    for label, table, shape in cases:
+    for label, table, shape in gather_cases(gen, dev):
         ids = torch.randint(0, table.shape[0], shape, generator=gen,
                             device=dev, dtype=torch.int32)
         got = gather_rows(table, ids)
@@ -328,18 +358,25 @@ def phase_gather(card: str, dev, gen) -> dict:
         if not torch.equal(got, want):
             raise AssertionError(f"gather {label}: kernel != plain")
         worst = max(worst, (got.float() - want.float()).abs().max().item())
-        ms = cuda_ms(lambda: gather_rows(table, ids))
-        plain_ms = cuda_ms(lambda: gather_rows_plain(table, ids))
         flat = ids.reshape(-1)
-        lib_ms = cuda_ms(lambda: torch.index_select(table, 0, flat))
+        eager, lib = [], []
+        for _ in range(GATHER_ROUNDS):   # in turns: the host's time drifts
+            eager.append(cuda_ms(lambda: gather_rows(table, ids)))
+            lib.append(cuda_ms(lambda: torch.index_select(table, 0, flat)))
+        ms, lib_ms = statistics.median(eager), statistics.median(lib)
+        gms = graph_ms(lambda: gather_rows(table, ids))
+        plain_ms = cuda_ms(lambda: gather_rows_plain(table, ids))
+        lib_gms = graph_ms(lambda: torch.index_select(table, 0, flat))
         rows = torch.unique(ids).numel()        # the rows this run reads
         b = bound(rows * table.shape[1] * table.element_size()
                   + nbytes(ids, got), 0)
-        log(f"[gather] {label}: exact, kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, index_select {lib_ms:.4f} ms, bound "
+        log(f"[gather] {label}: exact, kernel {ms:.4f} ms eagerly, "
+            f"{gms:.4f} ms by graph; plain {plain_ms:.4f} ms; index_select "
+            f"{lib_ms:.4f} ms eagerly, {lib_gms:.4f} ms by graph; bound "
             f"{b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]")
         if line is None:
-            line = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **b)
+            line = dict(ms=ms, graph_ms=gms, plain_ms=plain_ms,
+                        library_ms=lib_ms, **b)
         del table, ids, got, want
     torch.cuda.empty_cache()
     return dict(max_abs_err=worst, **line)
@@ -428,7 +465,11 @@ def phase_coattn(card: str, dev, gen) -> dict:
 def _pair_work(args, pool: str):
     """Compulsory bytes and f32 operations of the per-pair forward on these
     inputs: masked rows need not be read; EuW = Eu Wr once per valid user
-    row; the max pool's relation entries only for valid (j, k) pairs."""
+    row; the max pool's relation entries only for valid (j, k) pairs. The
+    sum and mean pools need no relation matrix: they take the fewer
+    operations of this form and the candidates form (`_cand_work`: w = Em
+    Wr once per (b, t), v = Es Wr^T once per unit), which needs fewer where
+    C is small."""
     Eu, Ei, mu, mi, Wr, eu, ei = args
     B, Tn, n, d = Eu.shape
     C = Ei.shape[1]
@@ -445,7 +486,8 @@ def _pair_work(args, pool: str):
     else:
         # per user row: score with the target folded in, weighted sum; per
         # item row: the masked sum, score, weighted sum
-        flops += 6 * d * C * vu + 5 * d * vi
+        flops = min(flops + 6 * d * C * vu + 5 * d * vi,
+                    _cand_work(args, C, backward=False)[1])
     return moved, flops
 
 
@@ -709,6 +751,121 @@ def phase_coattn_pair_bwd(card: str, dev, gen) -> dict:
     return dict(max_abs_err=worst, **line)
 
 
+# --- phase 2c: the wide co-attention kernels --------------------------------
+
+def _check_grads(tag: str, got, want, tol: float) -> float:
+    """The five gradients within tol of each one's largest value; their
+    largest absolute error."""
+    err = 0.0
+    for name, g, w in zip(("dEu", "dEi", "deu", "dei", "dWr"), got, want):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{tag}: {name} non-finite")
+        scale = max(w.float().abs().max().item(), 1.0)
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol,
+                                   atol=tol * scale, msg=f"{tag} {name}")
+        err = max(err, (g.float() - w.float()).abs().max().item())
+    return err
+
+
+# (label, shape) of the wide kernels: configs3 at d=64 as training, eval and
+# serving launch it (n = m = 10), d=128 at training, and d=32 with 40 rows
+WIDE_SHAPES = [("d64 training", dict(B=4096, C=2, d=64)),
+               ("d64 eval", dict(B=256, C=101, d=64)),
+               ("d64 serving", dict(B=16, C=4096, d=64)),
+               ("d128 training", dict(B=4096, C=2, d=128)),
+               ("n=m=40 d32", dict(B=1024, C=2, n=40, m=40, d=32))]
+
+
+def phase_coattn_wide(card: str, dev, gen) -> dict:
+    """The wide forward (each pool) and backward (sum, mean) against their
+    plain versions, through the public wrappers at widths that route to
+    them, with times and bounds; the tuned kernels must not launch. Returns
+    the kernels-line fields of both, at the d=64 training shape (bf16, the
+    sum pool), where the [d64] phase counts their launches."""
+    from score_tpu_torch.kernels.coattn import (cross_coattn_pair,
+                                                cross_coattn_pair_bwd,
+                                                cross_coattn_pair_bwd_plain,
+                                                cross_coattn_pair_plain)
+    fns = reset_counts()
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    line = {}
+    for label, kw in WIDE_SHAPES:
+        training = kw["C"] == 2
+        dtypes = ((torch.bfloat16, torch.float32) if label == "d64 training"
+                  else (torch.bfloat16,))
+        pools = ("sum",) if label == "d128 training" else ("sum", "mean",
+                                                          "max")
+        for dtype in dtypes:
+            tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+            args = _cand_inputs(gen, dev, dtype, **kw)
+            B, C, d = kw["B"], kw["C"], kw["d"]
+            grads = [torch.randn(B, C, T, d, generator=gen, device=dev)
+                     .to(dtype) for _ in range(2)]
+            for pool in pools:
+                tag = f"[coattn_wide] {label} {kw} {pool} {str(dtype)[6:]}"
+                got = cross_coattn_pair(*args, pool=pool)
+                want = cross_coattn_pair_plain(*args, pool=pool)
+                torch.cuda.synchronize()
+                err = 0.0
+                for g, w in zip(got, want):
+                    if not torch.isfinite(g).all():
+                        raise AssertionError(f"{tag}: non-finite")
+                    torch.testing.assert_close(g.float(), w.float(),
+                                               rtol=tol, atol=tol)
+                    err = max(err, (g.float() - w.float()).abs().max().item())
+                if not ((got[0][:, :, 0] == 0).all()
+                        and (got[1][:, :, T - 1] == 0).all()):
+                    raise AssertionError(f"{tag}: masked slot != 0")
+                worst["fwd"] = max(worst["fwd"], err)
+                ms = cuda_ms(lambda: cross_coattn_pair(*args, pool=pool))
+                gms = graph_ms(lambda: cross_coattn_pair(*args, pool=pool))
+                plain_ms = cuda_ms(lambda: cross_coattn_pair_plain(
+                    *args, pool=pool), iters=5)
+                b = bound(*_pair_work(args, pool))
+                log(f"{tag} forward: max_abs_err {err:.3e} (tol {tol}), "
+                    f"kernel {ms:.4f} ms ({gms:.4f} by graph), plain "
+                    f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+                    f"({b['bound_by']}) [{card}]")
+                if (label == "d64 training" and pool == "sum"
+                        and dtype == torch.bfloat16):
+                    line["fwd"] = dict(ms=ms, graph_ms=gms,
+                                       plain_ms=plain_ms, library_ms=None,
+                                       **b)
+                if pool == "max" or not training:
+                    continue
+                got = cross_coattn_pair_bwd(*args, *grads, pool=pool)
+                want = cross_coattn_pair_bwd_plain(*args, *grads, pool=pool)
+                torch.cuda.synchronize()
+                worst["bwd"] = max(worst["bwd"],
+                                   _check_grads(tag, got, want, tol))
+                if not ((got[0][:, 0] == 0).all()
+                        and (got[1][:, :, T - 1] == 0).all()):
+                    raise AssertionError(f"{tag}: masked rows' gradient != 0")
+                ms = cuda_ms(lambda: cross_coattn_pair_bwd(*args, *grads,
+                                                           pool=pool))
+                gms = graph_ms(lambda: cross_coattn_pair_bwd(*args, *grads,
+                                                             pool=pool))
+                plain_ms = cuda_ms(lambda: cross_coattn_pair_bwd_plain(
+                    *args, *grads, pool=pool), iters=5)
+                b = bound(*_cand_work(args, C, backward=True))
+                log(f"{tag} backward: max_abs_err (largest of the five) "
+                    f"within tol {tol} x the largest value, kernel {ms:.4f} "
+                    f"ms ({gms:.4f} by graph), plain {plain_ms:.4f} ms, "
+                    f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}) "
+                    f"[{card}]")
+                if (label == "d64 training" and pool == "sum"
+                        and dtype == torch.bfloat16):
+                    line["bwd"] = dict(ms=ms, graph_ms=gms,
+                                       plain_ms=plain_ms, library_ms=None,
+                                       **b)
+            del args, grads, got, want
+            torch.cuda.empty_cache()
+    launches = {k: fn.launches for k, fn in fns.items()}
+    check_launches("[coattn_wide]", launches,
+                   {"cross_coattn_wide", "cross_coattn_wide_bwd"})
+    return {k: dict(max_abs_err=worst[k], **v) for k, v in line.items()}
+
+
 # --- the dataset and the configuration ---------------------------------------
 
 def bench_dataset():
@@ -726,26 +883,28 @@ def bench_dataset():
     return ds
 
 
-def ladder_config(rung: str, dtype: str, width: bool = True):
+def ladder_config(rung: str, dtype: str, width: bool = True, dim: int = D):
     """Preset `rung` (configs0-3, with its own model flags and its uniform
     negatives) at bench.py's width and training knobs (batch 4096, tables
-    every 2nd step at 2x lr); width=False keeps the preset's own (smaller)
-    widths."""
+    every 2nd step at 2x lr), or at embed_dim `dim` with the same hidden
+    and MLP widths (scripts/perf_sweep.py's b4096_bf16_iw_d64, _d128);
+    width=False keeps the preset's own (smaller) widths."""
     from score_tpu_torch.config import PRESETS
     cfg = PRESETS[rung]()
     model = dict(compute_dtype=dtype)
     if width:
-        model.update(embed_dim=D, hidden_dim=64, mlp_dims=(128, 64))
+        model.update(embed_dim=dim, hidden_dim=64, mlp_dims=(128, 64))
     return cfg.replace(
         model=dataclasses.replace(cfg.model, **model),
         train=dataclasses.replace(cfg.train, batch_size=BATCH,
                                   table_update_every=2, table_lr_boost=2.0))
 
 
-def bench_config(dtype: str, width: bool = True, pool: str = "sum"):
+def bench_config(dtype: str, width: bool = True, pool: str = "sum",
+                 dim: int = D):
     """configs3 as bench.py trains it (importance-weighted in-batch
-    negatives), with co-attention pool `pool`."""
-    cfg = ladder_config("configs3", dtype, width)
+    negatives), with co-attention pool `pool`, at embed_dim `dim`."""
+    cfg = ladder_config("configs3", dtype, width, dim)
     return cfg.replace(
         model=dataclasses.replace(cfg.model, coattn_pool=pool),
         data=dataclasses.replace(cfg.data, train_neg_mode="inbatch_iw"))
@@ -774,12 +933,16 @@ def reset_counts() -> dict:
                                                 cross_coattn_pair_bwd)
     from score_tpu_torch.kernels.coattn_cand import (cross_coattn_cand,
                                                      cross_coattn_cand_bwd)
+    from score_tpu_torch.kernels.coattn_wide import (cross_coattn_wide,
+                                                     cross_coattn_wide_bwd)
     from score_tpu_torch.kernels.gather import gather_rows, scatter_add_rows
     fns = dict(gather_rows=gather_rows, scatter_add_rows=scatter_add_rows,
                cross_coattn_cand=cross_coattn_cand,
                cross_coattn_cand_bwd=cross_coattn_cand_bwd,
                cross_coattn_pair=cross_coattn_pair,
-               cross_coattn_pair_bwd=cross_coattn_pair_bwd)
+               cross_coattn_pair_bwd=cross_coattn_pair_bwd,
+               cross_coattn_wide=cross_coattn_wide,
+               cross_coattn_wide_bwd=cross_coattn_wide_bwd)
     for fn in fns.values():
         fn.launches = 0
     return fns
@@ -803,6 +966,13 @@ TRAIN_KERNELS = {"sum": {"gather_rows", "scatter_add_rows",
                           "cross_coattn_pair", "cross_coattn_pair_bwd"},
                  "max": {"gather_rows", "scatter_add_rows",
                          "cross_coattn_pair"}}
+# past d = 32 every pool runs the wide kernels, and no tuned co-attention one
+WIDE_SERVE_KERNELS = {"gather_rows", "cross_coattn_wide"}
+WIDE_TRAIN_KERNELS = {"sum": {"gather_rows", "scatter_add_rows",
+                              "cross_coattn_wide", "cross_coattn_wide_bwd"}}
+WIDE_TRAIN_KERNELS["mean"] = WIDE_TRAIN_KERNELS["sum"]
+WIDE_TRAIN_KERNELS["max"] = {"gather_rows", "scatter_add_rows",
+                             "cross_coattn_wide"}
 
 
 # --- phase 3: serving ------------------------------------------------------
@@ -1045,20 +1215,23 @@ def phase_training(card: str, ds, dev, pool: str = "sum",
 
 
 def phase_training_vs_cpu(ds, pool: str = "sum",
-                          devices=("cuda", "cpu")) -> None:
+                          devices=("cuda", "cpu")) -> list:
     """3 steps of configs3 (co-attention pool `pool`) at its own widths,
     f32, batch 256, on the card and on the CPU from the same weights (the
-    co-attention's made non-zero), batches and shifts."""
-    steps_vs_cpu(ds, bench_config("float32", width=False, pool=pool),
-                 f"[train {pool}]", devices, shifts=[[17], [101], [3]])
+    co-attention's made non-zero), batches and shifts; the card's losses."""
+    return steps_vs_cpu(
+        ds, bench_config("float32", width=False, pool=pool),
+        f"[train {pool}]", devices, shifts=[[17], [101], [3]])
 
 
 def steps_vs_cpu(ds, cfg, tag: str, devices=("cuda", "cpu"), shifts=None,
-                 negatives=None) -> None:
+                 negatives=None) -> list:
     """3 steps of `cfg`, f32, batch 256, on the card and on the CPU from
-    the same weights (the zero-initialised attention weights made
-    non-zero: at their zero init every co-attention pool scores the same),
-    batches and in-batch shifts or raw uniform negatives."""
+    the same weights (the zero-initialised attention weights made non-zero
+    and the tables widened as `random_weights` does: at their init scales
+    the attention scores are near 0, the softmaxes near uniform, and every
+    co-attention pool gives the same losses), batches and in-batch shifts
+    or raw uniform negatives. Returns the first device's losses."""
     from score_tpu_torch.graph import device_graph
     from score_tpu_torch.params import init_params
     from score_tpu_torch.train import (init_state, item_importance_weights,
@@ -1068,6 +1241,8 @@ def steps_vs_cpu(ds, cfg, tag: str, devices=("cuda", "cpu"), shifts=None,
     for k in sd:
         if k.startswith("coattn.") or k.startswith("slot_attn_"):
             sd[k] = torch.randn(sd[k].shape, generator=gen) * 0.3
+        elif "table" in k:
+            sd[k] = torch.randn(sd[k].shape, generator=gen) * 0.5
     neg_iw = torch.from_numpy(item_importance_weights(ds.train, ds.num_items))
     batches = _device_batches(ds, 3, 256, "cpu")
     out = {}
@@ -1086,7 +1261,7 @@ def steps_vs_cpu(ds, cfg, tag: str, devices=("cuda", "cpu"), shifts=None,
         out[device] = (losses, {k: v.detach().cpu() for k, v in
                                 state.model.named_parameters()})
     card, cpu = (out[d] for d in devices)
-    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(card[0], cpu[0], **LOSS_TOL)
     worst, where = 0.0, None
     for k, want in cpu[1].items():
         got = card[1][k]
@@ -1097,6 +1272,103 @@ def steps_vs_cpu(ds, cfg, tag: str, devices=("cuda", "cpu"), shifts=None,
     log(f"{tag} f32 card vs cpu, 3 steps of batch 256: losses "
         f"{card[0]} vs {cpu[0]}; params max_abs_err "
         f"{worst:.3e} ({where}; tol {TRAIN_CPU_TOL})")
+    return card[0]
+
+
+def check_pools_differ(tag: str, losses: dict) -> None:
+    """Fail unless every two co-attention pools' 3-step losses differ by
+    more than the card-against-CPU tolerance: a comparison that cannot tell
+    the pools apart cannot see a wrong score path in one of them."""
+    pools = sorted(losses)
+    for i, a in enumerate(pools):
+        for b in pools[i + 1:]:
+            if np.allclose(losses[a], losses[b], **LOSS_TOL):
+                raise AssertionError(
+                    f"{tag} pools {a} and {b} give the same losses "
+                    f"{losses[a]} within {LOSS_TOL}")
+    log(f"{tag} the pools' 3-step losses differ beyond {LOSS_TOL}")
+
+
+# --- phase 4b: configs3 past d = 32 ------------------------------------------
+
+WIDE_STEPS, WIDE_MAX_STEPS, WIDE_P50_CALLS = 20, 10, 50
+
+
+def phase_wide_model(card: str, ds, dev, dim: int, pool: str,
+                     profile: bool = False) -> dict:
+    """configs3 at embed_dim `dim` (hidden 64, MLP 128/64, bf16 over f32
+    master weights, B=4096 in-batch IW, tables every 2nd step at 2x lr, as
+    scripts/perf_sweep.py trains b4096_bf16_iw_d64 / _d128) with pool
+    `pool`, through the wide kernels: serving (score, score_batch, topk)
+    with its launches counted, a 4 x 256 request against the CPU in f32 and
+    bf16, and score's p50; training from flax-faithful init, warm-up and
+    WIDE_STEPS steps (max: WIDE_MAX_STEPS) with the launches counted, in
+    which the loss must fall, and a profile when asked; 3 steps at batch
+    256 in f32 on the card and on the CPU. Returns the training launches
+    and the card's losses of those 3 steps."""
+    from score_tpu_torch.graph import device_graph
+    from score_tpu_torch.params import init_params
+    from score_tpu_torch.serve import ScoringService
+    from score_tpu_torch.train import init_state, item_importance_weights
+    tag = f"[d{dim} {pool}]"
+    cfg = bench_config("bfloat16", pool=pool, dim=dim)
+    sd = random_weights(cfg, ds)
+    svc = ScoringService(cfg, ds, sd, device=dev)
+    rng = np.random.default_rng(SEED + dim)
+    u = int(ds.test.user[0])
+    items101 = rng.integers(1, ds.num_items + 1, 101).astype(np.int32)
+    users16 = ds.test.user[:ROWS].astype(np.int32)
+    items16 = rng.integers(1, ds.num_items + 1, (ROWS, WIDE)).astype(np.int32)
+    fns = reset_counts()
+    s1 = svc.score(u, items101)
+    sb = svc.score_batch(users16, items16)
+    top_i, top_s = svc.topk(u, k=10)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in fns.items()}
+    log(f"{tag} launches in the serving run: {launches}")
+    check_launches(f"{tag} serving", launches, WIDE_SERVE_KERNELS)
+    for name, arr, shape in (("score", s1, (101,)),
+                             ("score_batch", sb, (ROWS, WIDE)),
+                             ("topk", top_s, (10,))):
+        if arr.shape != shape or not np.isfinite(arr).all():
+            raise AssertionError(f"{tag} {name}: shape {arr.shape} or "
+                                 f"non-finite")
+    if not (np.all(np.diff(top_s) <= 0) and np.all(top_i >= 1)):
+        raise AssertionError(f"{tag} topk is not sorted over real items")
+    np.testing.assert_allclose(svc.score(u, top_i), top_s,
+                               **CPU_TOL["bfloat16"])
+    lat = []
+    for _ in range(WIDE_P50_CALLS):
+        t0 = time.perf_counter()
+        svc.score(u, items101)
+        lat.append(time.perf_counter() - t0)
+    log(f"{tag} score std {s1.std():.4f}; score(u, 101) p50 "
+        f"{statistics.median(lat) * 1e3:.3f} ms of {WIDE_P50_CALLS} calls "
+        f"[{card}]")
+    serve_vs_cpu(ds, lambda dtype: bench_config(dtype, pool=pool, dim=dim),
+                 sd, rng, tag, dev, card_bf16=svc)
+    del svc
+    torch.cuda.empty_cache()
+
+    steps = WIDE_MAX_STEPS if pool == "max" else WIDE_STEPS
+    sd = init_params(cfg, ds.num_users, ds.num_items,
+                     torch.Generator().manual_seed(SEED))
+    state = init_state(cfg, ds.num_users, ds.num_items, sd, device=dev)
+    graph = device_graph(ds.graph, dev)
+    neg_iw = torch.from_numpy(
+        item_importance_weights(ds.train, ds.num_items)).to(dev)
+    batches = _device_batches(ds, WARMUP_STEPS + steps + 6 * profile, BATCH,
+                              dev)
+    state, launches, ev_ms = _train_run(card, state, graph, batches, steps,
+                                        tag, WIDE_TRAIN_KERNELS[pool],
+                                        neg_iw=neg_iw)
+    if profile:
+        _profile(state, graph, batches[-6:], neg_iw, card, ev_ms, tag)
+    del state, graph, batches
+    torch.cuda.empty_cache()
+    losses = steps_vs_cpu(ds, bench_config("float32", pool=pool, dim=dim),
+                          tag, (dev, "cpu"), shifts=[[17], [101], [3]])
+    return launches, losses
 
 
 # --- phase 5: eval ---------------------------------------------------------
@@ -1416,14 +1688,22 @@ def main() -> int:
     scatter = phase_scatter(card, dev, gen)
     coattn_bwd = phase_coattn_bwd(card, dev, gen)
     pair_bwd = phase_coattn_pair_bwd(card, dev, gen)
+    wide = phase_coattn_wide(card, dev, gen)
     ds = bench_dataset()
     for pool in ("sum", "max", "mean"):
         phase_serving(card, ds, pool)
     launches = phase_training(card, ds, dev)              # sum pool
     launches_pair = phase_training(card, ds, dev, "mean")
     phase_training(card, ds, dev, "max", steps=MAX_POOL_STEPS)
-    for pool in ("sum", "mean", "max"):
-        phase_training_vs_cpu(ds, pool)
+    check_pools_differ("[train]", {pool: phase_training_vs_cpu(ds, pool)
+                                   for pool in ("sum", "mean", "max")})
+    launches_wide, losses = phase_wide_model(card, ds, dev, 64, "sum",
+                                             profile=True)
+    wide_losses = {"sum": losses}
+    for pool in ("mean", "max"):
+        wide_losses[pool] = phase_wide_model(card, ds, dev, 64, pool)[1]
+    check_pools_differ("[d64]", wide_losses)
+    phase_wide_model(card, ds, dev, 128, "sum")
     phase_eval(card, ds, dev)
     with tempfile.TemporaryDirectory() as work:
         data_dir = phase_driver(card, ds, dev, work)
@@ -1454,6 +1734,16 @@ def main() -> int:
              source="score_tpu_torch/csrc/coattn_pair_bwd.cu",
              replaces="score_tpu/kernels/coattn.py:241",
              launches=launches_pair["cross_coattn_pair_bwd"], **pair_bwd),
+        dict(name="cross_coattn_wide", route="cuda",
+             source="score_tpu_torch/csrc/coattn_wide.cu",
+             replaces="score_tpu/kernels/coattn_cand.py:275 and "
+                      "score_tpu/kernels/coattn.py:110 past d, n, m = 32",
+             launches=launches_wide["cross_coattn_wide"], **wide["fwd"]),
+        dict(name="cross_coattn_wide_bwd", route="cuda",
+             source="score_tpu_torch/csrc/coattn_wide.cu",
+             replaces="score_tpu/kernels/coattn_cand.py:301 and "
+                      "score_tpu/kernels/coattn.py:241 past d, n, m = 32",
+             launches=launches_wide["cross_coattn_wide_bwd"], **wide["bwd"]),
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -75,13 +75,15 @@ void launch(const float* src, const int32_t* ids, float* table,
 }  // namespace
 
 // src [n_ids, W] f32, ids [n_ids] int32 in [0, num_rows), table
-// [num_rows, W] f32 (zeroed by the caller); vec = 4, 2 or 1 floats.
+// [num_rows, W] f32 (zeroed by the caller). The vector is the widest of 4,
+// 2 and 1 floats that W and both base pointers allow.
 extern "C" int scatter_add_rows(const float* src, const int32_t* ids,
                                 float* table, long long n_ids,
-                                long long num_rows, long long W, int vec,
+                                long long num_rows, long long W,
                                 void* stream) {
   if (n_ids <= 0 || W <= 0) return 0;
-  if (vec <= 0 || W % vec != 0) return (int)cudaErrorInvalidValue;
+  const uintptr_t a = (uintptr_t)src | (uintptr_t)table | (uintptr_t)(W * 4);
+  const int vec = (a & 15u) == 0 ? 4 : (a & 7u) == 0 ? 2 : 1;
   const long long vpr = W / vec;
   const long long table_vecs = num_rows * vpr;
   cudaStream_t s = (cudaStream_t)stream;

@@ -7,8 +7,9 @@ carries a hash of its source and of the shared `csrc/*.cuh` headers, so an
 edited source is rebuilt and a stale library is never loaded. A missing
 `nvcc` or a failed build raises.
 
-Every C entry point returns `cudaGetLastError()` after its launch; `check`
-turns a non-zero code into an exception.
+Every C entry point takes the stream last and returns `cudaGetLastError()`
+after its launch; `launch` calls one on a device's current stream and
+raises on a non-zero code.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Callable, Dict, Sequence, Tuple
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
@@ -33,6 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# (name, entry) -> the C function, its restype and argtypes set once
+_fns: Dict[Tuple[str, str], Callable] = {}
 # name -> (seconds spent in nvcc, nvcc's output) of builds in this process
 build_log: Dict[str, Tuple[float, str]] = {}
 
@@ -80,7 +85,11 @@ def _build(name: str) -> Path:
 
 def load(name: str, entry: str, argtypes: Sequence) -> Callable:
     """C entry point `entry` of `csrc/<name>.cu`, built at first use; it
-    returns a CUDA error code (`check` raises on one)."""
+    returns a CUDA error code (`check` raises on one). Later calls return
+    the same function object and set nothing on it."""
+    fn = _fns.get((name, entry))
+    if fn is not None:
+        return fn
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -92,6 +101,7 @@ def load(name: str, entry: str, argtypes: Sequence) -> Callable:
         fn = getattr(lib, entry)
         fn.restype = ctypes.c_int
         fn.argtypes = list(argtypes)
+        _fns[(name, entry)] = fn
         return fn
 
 
@@ -109,3 +119,19 @@ def check(name: str, err: int) -> None:
     if err != 0:
         msg = getattr(_libs[name], f"{name}_error_string")(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+
+
+def launch(name: str, fn: Callable, index: int, *args) -> None:
+    """Call `fn`, a C entry point of `csrc/<name>.cu` from `load`, with
+    `args` and the raw current stream of CUDA device `index`, and raise on
+    its error code. The device guard is entered only when `index` is not
+    the current device, and the error string is looked up only on an
+    error: a launch costs the host little more than the ctypes call."""
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch._C._cuda_getDevice():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, stream)
+    if err:
+        check(name, err)

@@ -11,7 +11,8 @@ itself. On CUDA tensors `cross_coattn_pair` launches the hand-written
 kernel in `score_tpu_torch/csrc/coattn_pair.cu`, and its backward
 `cross_coattn_pair_bwd` (sum and mean) the one in
 `score_tpu_torch/csrc/coattn_pair_bwd.cu`; each source note says what
-bounds it on the H100 and how the design meets that. The max pool's
+bounds it on the H100 and how the design meets that; past d, n or m =
+32 both launch the wide kernels of `kernels/coattn_wide.py`. The max pool's
 backward, as in the JAX package, is autograd through the plain forward
 (`amax`, which splits the gradient evenly among tied maxima, as JAX's
 `reduce_max` VJP does). On CPU tensors the wrappers run the plain
@@ -30,7 +31,8 @@ from typing import Tuple
 import torch
 
 from . import _build
-from .coattn_cand import _DTYPE_CODE, _NEG, _check, _smax
+from .coattn_cand import _DTYPE_CODE, _NEG, _check, _smax, tuned
+from .coattn_wide import cross_coattn_wide, cross_coattn_wide_bwd
 
 POOLS = ("sum", "mean", "max")
 _POOL_CODE = {p: i for i, p in enumerate(POOLS)}
@@ -155,6 +157,9 @@ def _pair_fwd_launch(Eu, Ei, mu, mi, Wr, eu, ei, pool, target_aware):
                                        target_aware)
     B, C, T, n, m, d = _check("cross_coattn_pair", Eu, Ei, mu, mi, Wr, eu,
                               ei)
+    if not tuned("cross_coattn_pair", n, m, d):
+        return cross_coattn_wide(Eu, Ei, mu, mi, Wr, eu, ei, pool,
+                                 target_aware)
     dev = Eu.device
     args = [x.contiguous() for x in (Eu, Ei, mu, mi)]
     Wr32 = Wr.float().contiguous()
@@ -163,14 +168,12 @@ def _pair_fwd_launch(Eu, Ei, mu, mi, Wr, eu, ei, pool, target_aware):
     ci = torch.empty_like(cu)
     if cu.numel() == 0:
         return cu, ci
-    fn = _build.load("coattn_pair", "pair_fwd", _ARGTYPES)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = fn(*(x.data_ptr() for x in args), Wr32.data_ptr(),
-                 eu_c.data_ptr(), ei_c.data_ptr(), cu.data_ptr(),
-                 ci.data_ptr(), B, C, T, n, m, d, int(target_aware),
-                 _POOL_CODE[pool], _DTYPE_CODE[Eu.dtype], stream)
-    _build.check("coattn_pair", err)
+    _build.launch("coattn_pair",
+                  _build.load("coattn_pair", "pair_fwd", _ARGTYPES),
+                  dev.index, *(x.data_ptr() for x in args), Wr32.data_ptr(),
+                  eu_c.data_ptr(), ei_c.data_ptr(), cu.data_ptr(),
+                  ci.data_ptr(), B, C, T, n, m, d, int(target_aware),
+                  _POOL_CODE[pool], _DTYPE_CODE[Eu.dtype])
     cross_coattn_pair.launches += 1
     return cu, ci
 
@@ -187,6 +190,9 @@ def cross_coattn_pair_bwd(Eu, Ei, mu, mi, Wr, eu, ei, dcu, dci,
                                            dci, pool, target_aware)
     B, C, T, n, m, d = _check("cross_coattn_pair_bwd", Eu, Ei, mu, mi, Wr,
                               eu, ei, dcu, dci)
+    if not tuned("cross_coattn_pair_bwd", n, m, d):
+        return cross_coattn_wide_bwd(Eu, Ei, mu, mi, Wr, eu, ei, dcu, dci,
+                                     pool, target_aware)
     dev = Eu.device
     dWr = torch.zeros(d, d, dtype=torch.float32, device=dev)
     if B * C * T == 0:
@@ -201,16 +207,14 @@ def cross_coattn_pair_bwd(Eu, Ei, mu, mi, Wr, eu, ei, dcu, dci,
     parts = _build.load("coattn_pair_bwd", "pair_bwd_num_partials",
                         (ctypes.c_int,))(B)
     dWr_part = torch.empty(parts, d, d, dtype=torch.float32, device=dev)
-    fn = _build.load("coattn_pair_bwd", "pair_bwd", _BWD_ARGTYPES)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = fn(*(x.data_ptr() for x in ins), Wr32.data_ptr(),
-                 *(x.data_ptr() for x in rest),
-                 *(x.data_ptr() for x in (dEu, dEi, deu, dei, dei_acc,
-                                          dWr_part, dWr)),
-                 B, C, T, n, m, d, int(target_aware), _POOL_CODE[pool],
-                 _DTYPE_CODE[Eu.dtype], stream)
-    _build.check("coattn_pair_bwd", err)
+    _build.launch("coattn_pair_bwd",
+                  _build.load("coattn_pair_bwd", "pair_bwd", _BWD_ARGTYPES),
+                  dev.index, *(x.data_ptr() for x in ins), Wr32.data_ptr(),
+                  *(x.data_ptr() for x in rest),
+                  *(x.data_ptr() for x in (dEu, dEi, deu, dei, dei_acc,
+                                           dWr_part, dWr)),
+                  B, C, T, n, m, d, int(target_aware), _POOL_CODE[pool],
+                  _DTYPE_CODE[Eu.dtype])
     cross_coattn_pair_bwd.launches += 1
     return dEu, dEi, deu, dei, dWr
 

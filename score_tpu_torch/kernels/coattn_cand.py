@@ -6,7 +6,9 @@ forward is `_cand_fwd` and whose VJP is `_cand_bwd`. On CUDA tensors
 `score_tpu_torch/csrc/coattn_cand.cu`, and its backward
 `cross_coattn_cand_bwd` the one in `score_tpu_torch/csrc/coattn_cand_bwd.cu`
 (each source note says what bounds it on the H100 and how the design meets
-that). On CPU tensors they run the plain versions:
+that); past d, n or m = 32 they launch the wide kernels of
+`kernels/coattn_wide.py` instead. On CPU tensors they run the plain
+versions:
 `cross_coattn_cand_plain`, a torch copy of the JAX package's
 `cross_coattn_cand_ref`, and `cross_coattn_cand_bwd_plain`, the same VJP
 formulas written out in torch. There is no fallback from one to the other.
@@ -20,13 +22,14 @@ from typing import Tuple
 import torch
 
 from . import _build
+from .coattn_wide import (_DTYPE_CODE, MAX_WIDE_DIM, MAX_WIDE_ROWS,
+                          cross_coattn_wide, cross_coattn_wide_bwd)
 
 _NEG = -1e9
 _ARGTYPES = (ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,)
 _BWD_ARGTYPES = ((ctypes.c_void_p,) * 16 + (ctypes.c_int,) * 8
                  + (ctypes.c_void_p,))
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-MAX_DIM = 32          # d, n and m are each at most one warp wide
+MAX_DIM = 32          # the tuned kernels: d, n and m at most one warp wide
 
 
 def _smax(s: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -105,9 +108,22 @@ def cross_coattn_cand_bwd_plain(Eu, Ei, mu, mi, Wr, eu, ei, dcu, dci,
             dei.to(ei.dtype), dWr)
 
 
+def tuned(name, n: int, m: int, d: int) -> bool:
+    """Which hand-written kernels take this shape on the card: True for
+    the tuned ones (d, n, m <= MAX_DIM), False for the wide ones
+    (kernels/coattn_wide.py: d <= MAX_WIDE_DIM, n, m <= MAX_WIDE_ROWS);
+    ValueError beyond."""
+    if d <= MAX_DIM and n <= MAX_DIM and m <= MAX_DIM:
+        return True
+    if d <= MAX_WIDE_DIM and n <= MAX_WIDE_ROWS and m <= MAX_WIDE_ROWS:
+        return False
+    raise ValueError(f"{name}: needs d <= {MAX_WIDE_DIM} and n, m <= "
+                     f"{MAX_WIDE_ROWS}, got d={d} n={n} m={m}")
+
+
 def _check(name, Eu, Ei, mu, mi, Wr, eu, ei, *grads):
-    """Raise unless the inputs are what the CUDA kernels take; return
-    (B, C, T, n, m, d)."""
+    """Raise unless the inputs are what the CUDA kernels take (their sizes
+    `tuned` checks); return (B, C, T, n, m, d)."""
     B, T, n, d = Eu.shape
     C, m = Ei.shape[1], Ei.shape[3]
     dev = Eu.device
@@ -120,9 +136,9 @@ def _check(name, Eu, Ei, mu, mi, Wr, eu, ei, *grads):
                          f"must share one dtype, float32 or bfloat16")
     if mu.dtype != torch.bool or mi.dtype != torch.bool:
         raise ValueError(f"{name}: masks must be bool")
-    if not (1 <= d <= MAX_DIM and 1 <= n <= MAX_DIM and 1 <= m <= MAX_DIM):
-        raise ValueError(f"{name}: needs d, n, m in [1, {MAX_DIM}], got "
-                         f"d={d} n={n} m={m}")
+    if min(d, n, m) < 1:
+        raise ValueError(f"{name}: needs d, n, m >= 1, got d={d} n={n} "
+                         f"m={m}")
     shapes = {"Ei": (Ei.shape, (B, C, T, m, d)),
               "mu": (mu.shape, (B, T, n)), "mi": (mi.shape, (B, C, T, m)),
               "Wr": (Wr.shape, (d, d)), "eu": (eu.shape, (B, d)),
@@ -144,6 +160,9 @@ def _cand_fwd_launch(Eu, Ei, mu, mi, Wr, eu, ei, target_aware):
                                        target_aware)
     B, C, T, n, m, d = _check("cross_coattn_cand", Eu, Ei, mu, mi, Wr, eu,
                               ei)
+    if not tuned("cross_coattn_cand", n, m, d):
+        return cross_coattn_wide(Eu, Ei, mu, mi, Wr, eu, ei, "sum",
+                                 target_aware)
     dev = Eu.device
     args = [x.contiguous() for x in (Eu, Ei, mu, mi)]
     Wr32 = Wr.float().contiguous()
@@ -152,14 +171,12 @@ def _cand_fwd_launch(Eu, Ei, mu, mi, Wr, eu, ei, target_aware):
     ci = torch.empty_like(cu)
     if cu.numel() == 0:
         return cu, ci
-    fn = _build.load("coattn_cand", "cand_fwd", _ARGTYPES)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = fn(*(x.data_ptr() for x in args), Wr32.data_ptr(),
-                 eu_c.data_ptr(), ei_c.data_ptr(), cu.data_ptr(),
-                 ci.data_ptr(), B, C, T, n, m, d, int(target_aware),
-                 _DTYPE_CODE[Eu.dtype], stream)
-    _build.check("coattn_cand", err)
+    _build.launch("coattn_cand",
+                  _build.load("coattn_cand", "cand_fwd", _ARGTYPES),
+                  dev.index, *(x.data_ptr() for x in args), Wr32.data_ptr(),
+                  eu_c.data_ptr(), ei_c.data_ptr(), cu.data_ptr(),
+                  ci.data_ptr(), B, C, T, n, m, d, int(target_aware),
+                  _DTYPE_CODE[Eu.dtype])
     cross_coattn_cand.launches += 1
     return cu, ci
 
@@ -175,6 +192,9 @@ def cross_coattn_cand_bwd(Eu, Ei, mu, mi, Wr, eu, ei, dcu, dci,
                                            dci, target_aware)
     B, C, T, n, m, d = _check("cross_coattn_cand_bwd", Eu, Ei, mu, mi, Wr,
                               eu, ei, dcu, dci)
+    if not tuned("cross_coattn_cand_bwd", n, m, d):
+        return cross_coattn_wide_bwd(Eu, Ei, mu, mi, Wr, eu, ei, dcu, dci,
+                                     "sum", target_aware)
     dev = Eu.device
     dWr = torch.zeros(d, d, dtype=torch.float32, device=dev)
     if B * C * T == 0:
@@ -189,16 +209,13 @@ def cross_coattn_cand_bwd(Eu, Ei, mu, mi, Wr, eu, ei, dcu, dci,
     parts = _build.load("coattn_cand_bwd", "cand_bwd_num_partials",
                         (ctypes.c_int,))(B)
     dWr_part = torch.empty(parts, d, d, dtype=torch.float32, device=dev)
-    fn = _build.load("coattn_cand_bwd", "cand_bwd", _BWD_ARGTYPES)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = fn(*(x.data_ptr() for x in ins), Wr32.data_ptr(),
-                 *(x.data_ptr() for x in rest),
-                 *(x.data_ptr() for x in (dEu, dEi, deu, dei, dei_acc,
-                                          dWr_part, dWr)),
-                 B, C, T, n, m, d, int(target_aware),
-                 _DTYPE_CODE[Eu.dtype], stream)
-    _build.check("coattn_cand_bwd", err)
+    _build.launch("coattn_cand_bwd",
+                  _build.load("coattn_cand_bwd", "cand_bwd", _BWD_ARGTYPES),
+                  dev.index, *(x.data_ptr() for x in ins), Wr32.data_ptr(),
+                  *(x.data_ptr() for x in rest),
+                  *(x.data_ptr() for x in (dEu, dEi, deu, dei, dei_acc,
+                                           dWr_part, dWr)),
+                  B, C, T, n, m, d, int(target_aware), _DTYPE_CODE[Eu.dtype])
     cross_coattn_cand_bwd.launches += 1
     return dEu, dEi, deu, dei, dWr
 

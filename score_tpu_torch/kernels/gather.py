@@ -21,10 +21,10 @@ from . import _build
 _DTYPES = (torch.float32, torch.bfloat16, torch.int32)
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-             ctypes.c_int, ctypes.c_void_p)
+             ctypes.c_void_p)
 _SCATTER_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                      ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-                     ctypes.c_int, ctypes.c_void_p)
+                     ctypes.c_void_p)
 
 
 def gather_rows_plain(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -43,44 +43,38 @@ def scatter_add_rows_plain(ids: torch.Tensor, src: torch.Tensor,
         0, ids.reshape(-1), src.reshape(-1, W))
 
 
-def _vec_bytes(row_bytes: int, *ptrs: int) -> int:
-    for v in (16, 8, 4, 2):
-        if row_bytes % v == 0 and all(p % v == 0 for p in ptrs):
-            return v
-    raise ValueError(f"row of {row_bytes} bytes is not 2-byte aligned")
-
-
-def _check_cuda(name: str, table: torch.Tensor, ids: torch.Tensor) -> None:
-    if table.device.type != "cuda" or ids.device != table.device:
-        raise ValueError(f"{name}: tensors on {table.device} and "
-                         f"{ids.device}; all must be on one CUDA device")
+def _device_index(name: str, x: torch.Tensor, ids: torch.Tensor) -> int:
+    """The CUDA device both tensors lie on, or raise; ids must be int32."""
+    index = x.get_device()
+    if not x.is_cuda or ids.get_device() != index:
+        raise ValueError(f"{name}: tensors on {x.device} and {ids.device}; "
+                         f"all must be on one CUDA device")
     if ids.dtype != torch.int32:
         raise ValueError(f"{name}: ids must be int32, got {ids.dtype}")
+    return index
 
 
 def _gather_launch(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """The gather itself: the CUDA kernel, or the plain version on the
-    CPU."""
-    if table.device.type == "cpu":
+    CPU. The host's work on the card's path is a few attribute reads, one
+    allocation and one ctypes call: each microsecond here is one the step
+    pays for every one of its gathers."""
+    if table.is_cpu:
         return gather_rows_plain(table, ids)
-    _check_cuda("gather_rows", table, ids)
+    index = _device_index("gather_rows", table, ids)
     if table.dim() != 2 or not table.is_contiguous():
         raise ValueError("gather_rows: table must be a contiguous 2-D tensor")
     if table.dtype not in _DTYPES:
         raise ValueError(f"gather_rows: unsupported table dtype {table.dtype}")
     ids_c = ids.contiguous()
-    out = torch.empty(*ids.shape, table.shape[1], dtype=table.dtype,
-                      device=table.device)
-    row_bytes = table.shape[1] * table.element_size()
-    if ids_c.numel() == 0 or row_bytes == 0:
+    V, W = table.shape
+    out = table.new_empty((*ids.shape, W))
+    n = ids_c.numel()
+    if n == 0 or W == 0:
         return out
-    fn = _build.load("gather", "gather_rows", _ARGTYPES)
-    vec = _vec_bytes(row_bytes, table.data_ptr(), out.data_ptr())
-    stream = torch.cuda.current_stream(table.device).cuda_stream
-    with torch.cuda.device(table.device):
-        err = fn(table.data_ptr(), ids_c.data_ptr(), out.data_ptr(),
-                 ids_c.numel(), table.shape[0], row_bytes, vec, stream)
-    _build.check("gather", err)
+    _build.launch("gather", _build.load("gather", "gather_rows", _ARGTYPES),
+                  index, table.data_ptr(), ids_c.data_ptr(), out.data_ptr(),
+                  n, V, W * table.element_size())
     gather_rows.launches += 1
     return out
 
@@ -90,9 +84,9 @@ def scatter_add_rows(ids: torch.Tensor, src: torch.Tensor,
     """ids [...] int32, src [..., W] f32 -> [num_rows, W] f32 with
     table[ids[j]] += src[j] from zeros: the CUDA kernel on CUDA tensors, the
     plain version on the CPU. Out-of-range ids are the caller's bug."""
-    if src.device.type == "cpu":
+    if src.is_cpu:
         return scatter_add_rows_plain(ids, src, num_rows)
-    _check_cuda("scatter_add_rows", src, ids)
+    index = _device_index("scatter_add_rows", src, ids)
     if src.dtype != torch.float32:
         raise ValueError(f"scatter_add_rows: src must be float32, got "
                          f"{src.dtype}")
@@ -101,16 +95,15 @@ def scatter_add_rows(ids: torch.Tensor, src: torch.Tensor,
         raise ValueError(f"scatter_add_rows: src {tuple(src.shape)} does not "
                          f"match ids {tuple(ids.shape)}")
     src_c, ids_c = src.contiguous(), ids.contiguous()
-    table = torch.zeros(num_rows, W, dtype=torch.float32, device=src.device)
-    if ids_c.numel() == 0 or W == 0:
+    table = src.new_zeros((num_rows, W))
+    n = ids_c.numel()
+    if n == 0 or W == 0:
         return table
-    fn = _build.load("scatter_add", "scatter_add_rows", _SCATTER_ARGTYPES)
-    vec = _vec_bytes(W * 4, src_c.data_ptr(), table.data_ptr()) // 4
-    stream = torch.cuda.current_stream(src.device).cuda_stream
-    with torch.cuda.device(src.device):
-        err = fn(src_c.data_ptr(), ids_c.data_ptr(), table.data_ptr(),
-                 ids_c.numel(), num_rows, W, vec, stream)
-    _build.check("scatter_add", err)
+    _build.launch("scatter_add",
+                  _build.load("scatter_add", "scatter_add_rows",
+                              _SCATTER_ARGTYPES),
+                  index, src_c.data_ptr(), ids_c.data_ptr(), table.data_ptr(),
+                  n, num_rows, W)
     scatter_add_rows.launches += 1
     return table
 

@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from ..config import Config, ModelConfig
+from ..kernels.coattn_wide import MAX_WIDE_DIM, MAX_WIDE_ROWS
 from .coattn import (CrossCoAttention, SlotAttention, roll_candidates,
                      slot_mean)
 from .embed import EmbeddingTables
@@ -66,6 +67,22 @@ def check_config(cfg: Config) -> None:
         raise NotImplementedError(
             f"score_tpu_torch runs on one device; sharding is not ported "
             f"(num_data={sh.num_data}, num_rows={sh.num_rows})")
+
+
+def check_device(cfg: Config, device) -> None:
+    """On a CUDA device, raise NotImplementedError for a co-attention
+    config wider than its kernels take: embed_dim above MAX_WIDE_DIM, or a
+    neighbour fan-out above MAX_WIDE_ROWS. The CPU runs the plain versions,
+    which have no limit."""
+    if torch.device(device).type != "cuda" or cfg.model.slot_agg != "coattn":
+        return
+    d, fu, fi = (cfg.model.embed_dim, cfg.data.user_fanout,
+                 cfg.data.item_fanout)
+    if d > MAX_WIDE_DIM or max(fu, fi) > MAX_WIDE_ROWS:
+        raise NotImplementedError(
+            f"the co-attention kernels take embed_dim <= {MAX_WIDE_DIM} and "
+            f"neighbour fan-outs <= {MAX_WIDE_ROWS} on a CUDA device; got "
+            f"embed_dim={d}, user_fanout={fu}, item_fanout={fi}")
 
 
 def _nbr_mask(cnt: torch.Tensor, fanout: int,

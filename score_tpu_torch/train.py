@@ -54,7 +54,7 @@ from .data.schema import Dataset
 from .graph import DeviceGraph, device_graph, gather_candidate_batch
 from .metrics import (F16_BINS, auc, hist_auc, rank_sum_keys, ranking_sums,
                       score_hists)
-from .nn.model import ScoreModel, check_config
+from .nn.model import ScoreModel, check_config, check_device
 from .nn.scorer import bce_loss
 from .params import cast_tables, init_params
 
@@ -197,6 +197,7 @@ def init_state(cfg: Config, num_users: int, num_items: int,
     `count`, as the reference's restored TrainState carries its step, so
     stride-K table updates fall on the same steps."""
     check_trainable(cfg)
+    check_device(cfg, device)
     model = ScoreModel(cfg.model, num_users, num_items)
     model.load_state_dict({k: v.to(device=device, dtype=torch.float32)
                            for k, v in state_dict.items()}, assign=True)

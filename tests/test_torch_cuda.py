@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card: the
 gather and its scatter-add, and the candidates-form (sum pool) and
-per-pair (sum, mean, max) co-attention, forward and backward. And
+per-pair (sum, mean, max) co-attention, forward and backward, both on the
+tuned kernels (d, n, m <= 32) and on the wide ones past that. And
 checkpoints on the card: a saved state restores onto the card bit-equal,
 and a resumed `train()` agrees with a straight one.
 
@@ -24,6 +25,7 @@ import torch
 
 from score_tpu_torch.kernels import coattn as tpair
 from score_tpu_torch.kernels import coattn_cand as tcand
+from score_tpu_torch.kernels import coattn_wide as twide
 from score_tpu_torch.kernels import gather as tgather
 
 pytestmark = pytest.mark.cuda
@@ -50,6 +52,37 @@ def test_gather_kernel(cuda, W, dtype):
     torch.cuda.synchronize()
     assert tgather.gather_rows.launches == before + 1
     assert torch.equal(got.cpu(), tgather.gather_rows_plain(table, ids))
+
+
+@pytest.mark.parametrize("W,dtype,n_ids,offset", [
+    (1, torch.int32, 5000, 0),        # 4 B rows: a lane a row
+    (9, torch.int32, 8192, 0),        # 36 B: 9 words, groups of 16 lanes
+    (90, torch.int32, 8192, 0),       # 360 B: 45 8-B vectors, 32 lanes
+    (90, torch.int32, 8192, 1),       # the same in an offset view: 4-B
+    (1, torch.bfloat16, 3000, 0),     # 2 B rows
+    (32, torch.float32, 4100, 3),     # 128 B rows, offset view: 4-B words
+    (64, torch.float32, 4097, 0),     # 256 B rows, a ragged last pass
+    (90, torch.int32, 0, 0),          # no ids
+    (32, torch.bfloat16, 1, 0),       # one id
+])
+def test_gather_kernel_layouts(cuda, W, dtype, n_ids, offset):
+    """Row lengths and alignments that pick each vector width and group
+    size of the kernel; bit-exact against the plain version."""
+    rng = np.random.default_rng(W + n_ids)
+    V = 3000
+    flat = torch.from_numpy(rng.integers(-2**30, 2**30, V * W + offset))
+    flat = flat.to(torch.int32) if dtype == torch.int32 else \
+        (flat.float() / 2**20).to(dtype)
+    table = flat.to(cuda)[offset:].view(V, W)
+    assert table.is_contiguous()
+    ids = torch.from_numpy(rng.integers(0, V, (n_ids,)).astype(np.int32))
+    before = tgather.gather_rows.launches
+    got = tgather.gather_rows(table, ids.to(cuda))
+    torch.cuda.synchronize()
+    assert tgather.gather_rows.launches == before + (n_ids > 0)
+    assert got.shape == (n_ids, W) and got.dtype == dtype
+    assert torch.equal(got.cpu(), tgather.gather_rows_plain(table.cpu(),
+                                                            ids))
 
 
 def _cand_inputs(rng, B, C, T, n, m, d, dtype, device):
@@ -130,10 +163,170 @@ def test_cand_kernel(cuda, B, C, T, n, m, d, ta, unaligned, dtype):
 
 
 def test_cand_kernel_refuses_wide_rows(cuda):
-    args = _cand_inputs(np.random.default_rng(0), 1, 1, 1, 33, 4, 8,
-                        torch.float32, cuda)
-    with pytest.raises(ValueError):
-        tcand.cross_coattn_cand(*args)
+    """Past the wide kernels' limits (n or m = 65 rows, d = 129) every
+    co-attention wrapper raises before it launches anything."""
+    for n, m, d in ((65, 4, 8), (4, 65, 8), (4, 4, 129)):
+        args = _cand_inputs(np.random.default_rng(0), 1, 1, 1, n, m, d,
+                            torch.float32, cuda)
+        grads = [torch.zeros(1, 1, 1, d, device=cuda)] * 2
+        with pytest.raises(ValueError):
+            tcand.cross_coattn_cand(*args)
+        with pytest.raises(ValueError):
+            tcand.cross_coattn_cand_bwd(*args, *grads)
+        with pytest.raises(ValueError):
+            tpair.cross_coattn_pair(*args, pool="max")
+        with pytest.raises(ValueError):
+            tpair.cross_coattn_pair_bwd(*args, *grads, pool="mean")
+
+
+# (B, C, T, n, m, d, target_aware, variant) past the tuned kernels' 32:
+# the wide kernels (csrc/coattn_wide.cu). d = 33 and 100 in bf16 (66, 200
+# B rows) and "unaligned" take the scalar loads; "masked" masks every user
+# row of the last b and every item row of its last candidate. C = 600 at
+# B = 1 splits each (b, t)'s candidates over several warps.
+WIDE_CASES = [
+    (3, 2, 3, 10, 10, 33, True, ""),
+    (3, 2, 3, 10, 10, 64, True, ""),
+    (3, 2, 3, 10, 10, 64, False, "masked"),
+    (2, 3, 2, 10, 10, 100, True, ""),
+    (2, 3, 2, 10, 10, 128, True, ""),
+    (2, 2, 2, 40, 40, 32, True, ""),
+    (2, 2, 2, 64, 64, 32, True, "masked"),
+    (2, 2, 2, 64, 40, 128, True, ""),
+    (3, 2, 3, 10, 10, 64, True, "unaligned"),
+    (1, 600, 2, 10, 10, 64, True, ""),
+]
+WIDE_IDS = ["-".join(map(str, c[:7])) + (f"-{c[7]}" if c[7] else "")
+            for c in WIDE_CASES]
+
+
+def _wide_inputs(B, C, T, n, m, d, variant, dtype, device):
+    args = _cand_inputs(np.random.default_rng(C + n + d), B, C, T, n, m, d,
+                        dtype, device)
+    if variant == "masked":
+        args[2][B - 1] = False
+        args[3][B - 1, C - 1] = False
+    elif variant == "unaligned":
+        args = [_unaligned(a) if i in (0, 1, 5, 6) else a
+                for i, a in enumerate(args)]
+        assert all(args[i].data_ptr() % 16 for i in (0, 1, 5, 6))
+    return args
+
+
+def _wide_counts():
+    return (twide.cross_coattn_wide.launches,
+            twide.cross_coattn_wide_bwd.launches,
+            tcand.cross_coattn_cand.launches,
+            tcand.cross_coattn_cand_bwd.launches,
+            tpair.cross_coattn_pair.launches,
+            tpair.cross_coattn_pair_bwd.launches)
+
+
+@pytest.mark.parametrize("B,C,T,n,m,d,ta,variant", WIDE_CASES, ids=WIDE_IDS)
+@pytest.mark.parametrize("pool", ["sum", "mean", "max"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_kernel(cuda, B, C, T, n, m, d, ta, variant, pool, dtype):
+    """The wide forward through `cross_coattn_pair` (and, for the sum pool,
+    `cross_coattn_cand`): its counter moves, the tuned kernels' do not."""
+    args = _wide_inputs(B, C, T, n, m, d, variant, dtype, cuda)
+    want = tpair.cross_coattn_pair_plain(*args, pool=pool, target_aware=ta)
+    calls = [lambda: tpair.cross_coattn_pair(*args, pool=pool,
+                                             target_aware=ta)]
+    if pool == "sum":
+        calls.append(lambda: tcand.cross_coattn_cand(*args, target_aware=ta))
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for call in calls:
+        before = _wide_counts()
+        got = call()
+        torch.cuda.synchronize()
+        assert _wide_counts() == (before[0] + 1,) + before[1:]
+        for g, w in zip(got, want):
+            assert g.dtype == dtype and g.shape == (B, C, T, d)
+            assert torch.isfinite(g).all()
+            torch.testing.assert_close(g.float(), w.float(), rtol=tol,
+                                       atol=tol)
+        assert (got[0][0, :, 0] == 0).all()
+        assert (got[1][0, :, T - 1] == 0).all()
+        if variant == "masked":
+            assert (got[0][B - 1] == 0).all()
+            assert (got[1][B - 1, C - 1] == 0).all()
+
+
+@pytest.mark.parametrize("B,C,T,n,m,d,ta,variant", WIDE_CASES[:-1],
+                         ids=WIDE_IDS[:-1])
+@pytest.mark.parametrize("pool", ["sum", "mean"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_bwd_kernel(cuda, B, C, T, n, m, d, ta, variant, pool, dtype):
+    """The wide backward through `cross_coattn_pair_bwd` (and, for the sum
+    pool, `cross_coattn_cand_bwd`), relative to each gradient's largest
+    value as the tuned backward's tests; dWr the same run to run."""
+    args = _wide_inputs(B, C, T, n, m, d, variant, dtype, cuda)
+    rng = np.random.default_rng(B * C + d)
+    grads = [torch.from_numpy(rng.normal(size=(B, C, T, d)).astype(
+        np.float32)).to(dtype).to(cuda) for _ in range(2)]
+    want = tpair.cross_coattn_pair_bwd_plain(*args, *grads, pool=pool,
+                                             target_aware=ta)
+    calls = [lambda: tpair.cross_coattn_pair_bwd(*args, *grads, pool=pool,
+                                                 target_aware=ta)]
+    if pool == "sum":
+        calls.append(lambda: tcand.cross_coattn_cand_bwd(*args, *grads,
+                                                         target_aware=ta))
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for call in calls:
+        before = _wide_counts()
+        got = call()
+        torch.cuda.synchronize()
+        assert _wide_counts() == (before[0], before[1] + 1) + before[2:]
+        for name, g, w in zip(("dEu", "dEi", "deu", "dei", "dWr"), got,
+                              want):
+            assert g.shape == w.shape and g.dtype == w.dtype, name
+            assert torch.isfinite(g).all(), name
+            scale = max(w.float().abs().max().item(), 1.0)
+            torch.testing.assert_close(g.float(), w.float(), rtol=tol,
+                                       atol=tol * scale, msg=name)
+        assert (got[0][0, 0] == 0).all() and (got[1][0, :, T - 1] == 0).all()
+        if variant == "masked":
+            assert (got[0][B - 1] == 0).all()
+            assert (got[1][B - 1, C - 1] == 0).all()
+        assert torch.equal(call()[4], got[4])   # dWr the same run to run
+
+
+@pytest.mark.parametrize("pool", ["sum", "mean", "max"])
+def test_wide_function_launches_forward_and_backward(cuda, pool):
+    """configs3's co-attention at d = 64 through the model's module: the
+    wide forward, then the wide backward (sum, mean) or the recompute VJP
+    (max), against autograd through the plain forward."""
+    from score_tpu_torch.nn.coattn import CrossCoAttention
+    rng = np.random.default_rng(12)
+    B, C, T, n, m, d = 5, 2, 3, 10, 10, 64
+    args = _cand_inputs(rng, B, C, T, n, m, d, torch.float32, cuda)
+    mod = CrossCoAttention(d, pool=pool).to(cuda)
+    with torch.no_grad():
+        for p in mod.parameters():
+            p.copy_(torch.from_numpy(rng.normal(size=p.shape) * 0.3))
+    dcu, dci = (torch.from_numpy(rng.normal(size=(B, C, T, d)).astype(
+        np.float32)).to(cuda) for _ in range(2))
+    Eu, Ei, mu, mi, _, eu, ei = args
+    xs = [x.clone().requires_grad_(True) for x in (Eu, Ei, eu, ei)]
+    before = _wide_counts()
+    cu, ci = mod(xs[0], xs[1], mu, mi, xs[2], xs[3])
+    got = torch.autograd.grad((cu * dcu).sum() + (ci * dci).sum(),
+                              xs + list(mod.parameters()))
+    torch.cuda.synchronize()
+    assert _wide_counts() == (before[0] + 1, before[1] + (pool != "max")) \
+        + before[2:]
+    ys = [x.detach().clone().requires_grad_(True) for x in xs]
+    W = {k: v.detach().clone().requires_grad_(True)
+         for k, v in mod.named_parameters()}
+    cu, ci = tpair.cross_coattn_pair_plain(
+        ys[0], ys[1], mu, mi, W["wr"], ys[2] @ W["wti"].T,
+        ys[3] @ W["wtu"].T, pool=pool)
+    want = torch.autograd.grad((cu * dcu).sum() + (ci * dci).sum(),
+                               ys + [W[k] for k, _ in
+                                     mod.named_parameters()])
+    for g, w in zip(got, want):
+        scale = max(w.abs().max().item(), 1.0)
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * scale)
 
 
 @pytest.mark.parametrize("V,W,shape", [(1000, 32, (64, 9, 10)),
