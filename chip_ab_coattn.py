@@ -17,7 +17,10 @@ and one user at C=4096), eval (B=512 and 256, C=101), training (B=4096,
 C=2), a ragged B and configs3's own d=16 give it. The backwards run at
 BWD_SHAPES, `chip_smoke.phase_coattn_bwd`'s: training (B=4096, C=2), a
 ragged B, flat pairs (C=1) and d=16, target-aware, on output gradients
-drawn from the same generator. Two times a shape, both CUDA events:
+drawn from the same generator; and the wide backward
+(`cross_coattn_pair_bwd` past d, n, m = 32, sum and mean pools) at
+WIDE_BWD_SHAPES: configs3's training shape at d=64 and d=128, and d=32
+with n = m = 40. Two times a shape, both CUDA events:
 "stream", the mean of ITERS calls of the wrapper after 3 warm-ups
 (`chip_smoke.cuda_ms`, as `chip_smoke.py` times it; where a call's host
 work outlasts the kernel, this is the host's time), and "graph", the mean
@@ -30,7 +33,7 @@ every kernel, shape and timing each side's times (ms) in run order, their
 medians, and the ratio of A's median to B's. The candidates forward's
 keys read "B=.. C=.. <dtype> <timing>", the per-pair forward's
 "pair_fwd <pool> B=.. C=.. <dtype> <timing>", the backwards' "cand_bwd
-sum B=.. ..." and "pair_bwd mean B=.. ...". Exits non-zero if any run
+sum B=.. ...", "pair_bwd mean B=.. ..." and "wide_bwd <pool> B=.. ...". Exits non-zero if any run
 fails. About a minute a run on an H100.
 """
 
@@ -52,6 +55,10 @@ FWD_SHAPES = [dict(B=1, C=256), dict(B=1, C=4096), dict(B=16, C=4096),
               dict(B=37, C=101), dict(B=64, C=101, d=16)]
 BWD_SHAPES = [dict(B=4096, C=2), dict(B=37, C=2), dict(B=64, C=1),
               dict(B=64, C=2, d=16)]
+# the wide backward (past d, n, m = 32): configs3's training shape at d=64
+# and d=128, and d=32 with 40 neighbour rows a side
+WIDE_BWD_SHAPES = [dict(B=4096, C=2, d=64), dict(B=4096, C=2, d=128),
+                   dict(B=1024, C=2, n=40, m=40, d=32)]
 
 RUN = """
 import json, sys, torch
@@ -120,13 +127,27 @@ for kw in %r:
             *args, *grads, pool='mean', target_aware=True))
         del args, grads
         torch.cuda.empty_cache()
+for kw in %r:
+    for dtype in (torch.bfloat16, torch.float32):
+        args = cs._cand_inputs(gen, dev, dtype, **kw)
+        grads = [torch.randn(kw['B'], kw['C'], cs.T, kw['d'],
+                             generator=gen, device=dev).to(dtype)
+                 for _ in range(2)]
+        key = ' '.join(f'{k}={v}' for k, v in kw.items()) + ' ' + str(
+            dtype)[6:]
+        for pool in ('sum', 'mean'):
+            time_both(f'wide_bwd {pool} ' + key,
+                      lambda: cross_coattn_pair_bwd(*args, *grads, pool=pool,
+                                                    target_aware=True))
+        del args, grads
+        torch.cuda.empty_cache()
 print('RESULT ' + json.dumps(out))
 """
 
 
-def run_code(fwd_shapes, bwd_shapes) -> str:
+def run_code(fwd_shapes, bwd_shapes, wide_shapes=()) -> str:
     """The program one run executes, timing the given shapes."""
-    return RUN % (ITERS, REPLAYS, fwd_shapes, bwd_shapes)
+    return RUN % (ITERS, REPLAYS, fwd_shapes, bwd_shapes, list(wide_shapes))
 
 
 def run(path: str, code: str) -> dict:
@@ -166,7 +187,8 @@ def main() -> int:
         return 2
     a, b = sys.argv[1:]
     card = card_line()
-    shapes = in_turns(a, b, run_code(FWD_SHAPES, BWD_SHAPES))
+    shapes = in_turns(a, b, run_code(FWD_SHAPES, BWD_SHAPES,
+                                     WIDE_BWD_SHAPES))
     print(json.dumps({"card": card, "pairs": PAIRS, "iters": ITERS,
                       "replays": REPLAYS, "shapes": shapes}))
     return 0

@@ -22,9 +22,16 @@ fails or no CUDA device is present.
    same inputs). The gather must be exact; the co-attention agrees to
    1e-4 in f32 and 2e-2 in bf16 (f32 inside, other summation order, one
    bf16 rounding of the output).
-2b. Backward kernels against their plain versions. The scatter-add is
-   exact on integer-valued sources and within 1e-5 relative of
-   `index_add_` on random ones (f32 atomics add in no fixed order); the
+2b. Backward kernels against their plain versions. The scatter-add
+   ([scatter]) at uniform ids one lookup at a time, then grouped as a
+   step groups a table's lookups into one call, on the real ids of one
+   training batch of the bench dataset (configs3 with in-batch and with
+   uniform negatives, configs0's shared table), beside `index_add` of
+   the same segments and the separate scatters and their sum; and the
+   grouped backward of a table's lookups must run a memset and the
+   scatter kernel and no other kernel. It is exact on integer-valued
+   sources and within 1e-5 relative of `index_add_` on random ones (f32
+   atomics add in no fixed order); the
    co-attention backwards' ([coattn_bwd] sum; [coattn_pair_bwd] sum and
    mean) five gradients agree to 1e-4 in f32 and 2e-2 in bf16, relative
    to each gradient's largest value.
@@ -38,7 +45,8 @@ fails or no CUDA device is present.
    past d, n, m = 32) through the public wrappers, forward for each pool
    and backward for sum and mean, against their plain versions at
    configs3's d=64 training, eval and serving shapes, d=128 at training
-   and d=32 with n = m = 40 rows; the tuned kernels must not launch.
+   and d=32 with n = m = 40 rows; two runs of the backward bit-equal; the
+   tuned kernels must not launch.
 3. Serving, for each co-attention pool (sum, max, mean): ScoringService on
    the configs3 model at the benchmark's width (bench.py: d=32, hidden 64,
    MLP 128/64, T=9, n=m=10, bf16 compute) over a synthetic 50k-user /
@@ -53,7 +61,9 @@ fails or no CUDA device is present.
    negative, tables every 2nd step at 2x lr, Adam 1e-3, L2 1e-5) on the
    same dataset from flax-faithful init (seed 0). 3 warm-up steps (tables
    must change on steps 0 and 2 only), then timed steps through
-   train_loop with the kernels' launches counted: 50 steps with the sum
+   train_loop with the kernels' launches counted (the scatter-add once a
+   table on each table-update step, one call for all of a table's
+   lookups): 50 steps with the sum
    pool (gather, scatter-add, candidates forward and backward) and with
    the mean pool (gather, scatter-add, per-pair forward and backward), in
    which the loss must fall, each with a torch.profiler window of device
@@ -588,10 +598,130 @@ def phase_coattn_pair(card: str, dev, gen) -> dict:
 
 # --- phase 2b: backward kernels --------------------------------------------
 
-def phase_scatter(card: str, dev, gen) -> dict:
+def _scatter_line(card, label, ids, src, V, lib_tables=None) -> dict:
+    """One grouped scatter-add (the segments ids, src into a [V, D] table)
+    held to its plain version (exact on integer-valued sources, within
+    1e-5 relative of it on random ones) and timed: the
+    kernel eagerly (what a step pays) and by CUDA graph, the plain version,
+    index_add of the concatenated segments (one PyTorch call), the
+    separate one-segment scatters and their sum (what each lookup's own
+    backward did before the lookups were grouped), and the bound."""
     from score_tpu_torch.kernels.gather import (scatter_add_rows,
                                                 scatter_add_rows_plain)
-    # training's four table gradients: (table rows, ids shape)
+    ints = [torch.randint(-8, 9, x.shape, generator=torch.Generator(
+        device=x.device).manual_seed(SEED), device=x.device).float()
+            * (x != 0) for x in src]
+    got = scatter_add_rows(ids, ints, V)
+    if not torch.equal(got, scatter_add_rows_plain(ids, ints, V)):
+        raise AssertionError(f"scatter_add {label}: integer sums differ "
+                             f"from the plain version")
+    got = scatter_add_rows(ids, src, V)
+    want = scatter_add_rows_plain(ids, src, V)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    err = (got - want).abs().max().item()
+    ms = cuda_ms(lambda: scatter_add_rows(ids, src, V))
+    gms = graph_ms(lambda: scatter_add_rows(ids, src, V))
+    plain_ms = cuda_ms(lambda: scatter_add_rows_plain(ids, src, V))
+    zeros = torch.zeros(V, D, device=src[0].device)
+    flat_ids = torch.cat([x.reshape(-1) for x in ids])
+    flat_src = torch.cat([x.reshape(-1, D) for x in src])
+    lib_ms = cuda_ms(lambda: torch.index_add(zeros, 0, flat_ids, flat_src))
+    sep = ""
+    if len(ids) > 1:
+        def separate():
+            tables = [scatter_add_rows(i, x, V) for i, x in zip(ids, src)]
+            return sum(tables[1:], tables[0])
+        sep = (f", separate scatters and their sum {cuda_ms(separate):.4f} "
+               f"ms ({graph_ms(separate):.4f} by graph)")
+    b = bound(nbytes(*src, *ids, got),
+              sum((x != 0).sum().item() for x in src))
+    rows = sum(x.numel() for x in ids)
+    live = sum((x != 0).any(-1).sum().item() for x in src)
+    distinct = torch.unique(torch.cat([x.reshape(-1) for x in ids])).numel()
+    log(f"[scatter] {label}: {len(ids)} segment(s), {rows} ids ({live} with "
+        f"a non-zero gradient, {distinct} distinct), integer sums "
+        f"exact, random max_abs_err {err:.3e} (tol 1e-5 rel), kernel "
+        f"{ms:.4f} ms eagerly, {gms:.4f} ms by graph; plain "
+        f"{plain_ms:.4f} ms, index_add {lib_ms:.4f} ms{sep}; bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]")
+    return dict(max_abs_err=err, ms=ms, graph_ms=gms, plain_ms=plain_ms,
+                library_ms=lib_ms, **b)
+
+
+def _real_segments(ds, dev, rung: str, neg: str, gen) -> dict:
+    """Each table's lookups (ids, and a random gradient that is zero where
+    the model masks the slot) of one training batch of the bench dataset,
+    as the step groups them: table name -> (rows, ids list, src list)."""
+    from score_tpu_torch.graph import device_graph, gather_candidate_batch
+    from score_tpu_torch.nn.embed import round_up
+    from score_tpu_torch.nn.model import _nbr_mask
+    b = _device_batches(ds, 1, BATCH, dev)[0]
+    C = 1 if neg == "inbatch" else 2          # [positive | one negative]
+    cand = b["item"][:, None]
+    if C == 2:
+        negs = torch.randint(1, ds.num_items + 1, (BATCH, 1), generator=gen,
+                             device=dev, dtype=torch.int32)
+        cand = torch.cat([cand, negs], dim=1)
+    mb = gather_candidate_batch(device_graph(ds.graph, dev), b["user"], cand,
+                                b["slot"], item_side=rung != "configs0")
+    sv = mb["slot_valid"]
+
+    def grad_like(ids, mask=None):
+        g = torch.randn(*ids.shape, D, generator=gen, device=dev)
+        return g if mask is None else g * mask[..., None]
+
+    Eu_mask = _nbr_mask(mb["u_cnt"], FAN, sv)
+    items = [mb["cand"], mb["u_hist"]]
+    item_src = [grad_like(mb["cand"]), grad_like(mb["u_hist"], Eu_mask)]
+    users, user_src = [mb["user"]], [grad_like(mb["user"])]
+    if rung == "configs0":     # the shared table: items, then users offset
+        off = torch.where(mb["user"] > 0, mb["user"] + ds.num_items, 0)
+        rows = round_up(1 + ds.num_items + ds.num_users)
+        return {"shared": (rows, items + [off], item_src + user_src)}
+    Ei_mask = _nbr_mask(mb["i_cnt"], FAN, sv[:, None])
+    users.append(mb["i_hist"])
+    user_src.append(grad_like(mb["i_hist"], Ei_mask))
+    return {"item": (round_up(1 + ds.num_items), items, item_src),
+            "user": (round_up(1 + ds.num_users), users, user_src)}
+
+
+def check_grouped_backward_kernels(card: str, dev) -> None:
+    """The backward of one table's grouped lookups runs a memset and the
+    scatter-add kernel and nothing else: no fill and no add of a dense
+    table gradient (torch.profiler's CUDA kernels of that backward)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from score_tpu_torch.kernels.gather import gather_rows_grouped
+    table = torch.randn(90560, D, device=dev, requires_grad=True)
+    ids = [torch.randint(0, 90560, s, device=dev, dtype=torch.int32)
+           for s in ((BATCH, 1), (BATCH, T, FAN))]
+    outs = gather_rows_grouped(table, ids)
+    douts = [torch.randn_like(o) for o in outs]
+    torch.autograd.grad(outs, [table], grad_outputs=douts,
+                        retain_graph=True)                  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.autograd.grad(outs, [table], grad_outputs=douts)
+        torch.cuda.synchronize()
+    names = sorted({ev.key for ev in prof.key_averages()
+                    if ev.device_type == DeviceType.CUDA})
+    kernels = [k for k in names if "memset" not in k.lower()]
+    if not names or any("scatter_add_kernel" not in k for k in kernels):
+        raise AssertionError(f"[scatter] the grouped backward ran {names}; "
+                             f"expected a memset and scatter_add_kernel")
+    log(f"[scatter] the grouped backward of 2 lookups runs {names} and no "
+        f"other kernel [{card}]")
+
+
+def phase_scatter(card: str, dev, gen, ds) -> dict:
+    """The table-gradient scatter-add: uniform ids at the shapes a step's
+    lookups give (70% valid), then the grouped call as the step makes it on
+    the real ids of one training batch of the bench dataset (configs3 with
+    in-batch and with uniform negatives, configs0's shared table). Returns
+    the kernels-line fields of the main path's call: configs3's item table
+    with in-batch negatives."""
+    # training's four lookups one at a time: (table rows, ids shape)
     cases = [("item [90560,32] ids [4096,9,10]", 90560, (BATCH, T, FAN)),
              ("item [90560,32] ids [4096,1]", 90560, (BATCH, 1)),
              ("user [50048,32] ids [4096,1,9,10]", 50048, (BATCH, 1, T, FAN)),
@@ -603,43 +733,30 @@ def phase_scatter(card: str, dev, gen) -> dict:
              ("shared [140608,32] ids [4096,9,10] (configs0)", SHARED_ROWS,
               (BATCH, T, FAN))]
     worst = 0.0
-    line = None
     for label, V, shape in cases:
         ids = torch.randint(1, V, shape, generator=gen, device=dev,
                             dtype=torch.int32)
         pad = torch.rand(shape, generator=gen, device=dev) < 0.3
         ids[pad] = 0        # masked neighbour slots: pad id, zero gradient
-        ints = torch.randint(-8, 9, shape + (D,), generator=gen,
-                             device=dev).float()
-        ints[pad] = 0.0
-        got = scatter_add_rows(ids, ints, V)
-        if not torch.equal(got, scatter_add_rows_plain(ids, ints, V)):
-            raise AssertionError(f"scatter_add {label}: integer sums "
-                                 f"differ from the plain version")
         src = torch.randn(shape + (D,), generator=gen, device=dev)
         src[pad] = 0.0
-        got = scatter_add_rows(ids, src, V)
-        want = scatter_add_rows_plain(ids, src, V)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-        err = (got - want).abs().max().item()
-        worst = max(worst, err)
-        ms = cuda_ms(lambda: scatter_add_rows(ids, src, V))
-        plain_ms = cuda_ms(lambda: scatter_add_rows_plain(ids, src, V))
-        zeros = torch.zeros(V, D, device=dev)
-        flat_ids, flat_src = ids.reshape(-1), src.reshape(-1, D)
-        lib_ms = cuda_ms(lambda: torch.index_add(zeros, 0, flat_ids,
-                                                 flat_src))
-        b = bound(nbytes(src, ids, got), (src != 0).sum().item())
-        log(f"[scatter] {label}: integer sums exact, random max_abs_err "
-            f"{err:.3e} (tol 1e-5 rel), kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, index_add {lib_ms:.4f} ms, bound "
-            f"{b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]")
-        if line is None:
-            line = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **b)
-        del ids, ints, src, got, want, zeros
+        worst = max(worst, _scatter_line(card, label, [ids], [src],
+                                         V)["max_abs_err"])
+    line = None
+    for rung, neg in (("configs3", "inbatch"), ("configs3", "uniform"),
+                      ("configs0", "uniform")):
+        for table, (V, ids, src) in _real_segments(ds, dev, rung, neg,
+                                                   gen).items():
+            label = (f"{rung} {neg}, {table} table [{V},{D}], real ids "
+                     f"{' + '.join(str(list(x.shape)) for x in ids)}")
+            out = _scatter_line(card, label, ids, src, V)
+            worst = max(worst, out["max_abs_err"])
+            if line is None:
+                line = out
+    check_grouped_backward_kernels(card, dev)
     torch.cuda.empty_cache()
-    return dict(max_abs_err=worst, **line)
+    line["max_abs_err"] = worst
+    return line
 
 
 def phase_coattn_bwd(card: str, dev, gen) -> dict:
@@ -835,9 +952,13 @@ def phase_coattn_wide(card: str, dev, gen) -> dict:
                     continue
                 got = cross_coattn_pair_bwd(*args, *grads, pool=pool)
                 want = cross_coattn_pair_bwd_plain(*args, *grads, pool=pool)
+                again = cross_coattn_pair_bwd(*args, *grads, pool=pool)
                 torch.cuda.synchronize()
                 worst["bwd"] = max(worst["bwd"],
                                    _check_grads(tag, got, want, tol))
+                if not all(torch.equal(a, g) for a, g in zip(again, got)):
+                    raise AssertionError(f"{tag}: two runs of the backward "
+                                         f"differ")
                 if not ((got[0][:, 0] == 0).all()
                         and (got[1][:, :, T - 1] == 0).all()):
                     raise AssertionError(f"{tag}: masked rows' gradient != 0")
@@ -946,6 +1067,23 @@ def reset_counts() -> dict:
     for fn in fns.values():
         fn.launches = 0
     return fns
+
+
+def check_table_scatters(what: str, cfg, launches: dict, timed) -> None:
+    """One scatter-add a table on each table-update step of the steps
+    `timed` (a range of step numbers), none on the others: 2 a step with
+    separate user and item tables, 1 with configs0's shared table."""
+    stride = max(cfg.train.table_update_every, 1)
+    updates = sum(1 for j in range(timed.start, timed.stop)
+                  if j % stride == 0)
+    tables = 1 if cfg.model.shared_table else 2
+    got = launches["scatter_add_rows"]
+    if got != tables * updates:
+        raise AssertionError(f"{what}: scatter_add_rows launched {got} "
+                             f"times in {updates} table-update steps; "
+                             f"expected {tables} a step")
+    log(f"{what} scatter_add_rows: {got} launches, {tables} a table-update "
+        f"step ({updates} of them)")
 
 
 def check_launches(what: str, launches: dict, want: set) -> None:
@@ -1169,6 +1307,7 @@ def _train_run(card: str, state, graph, batches, steps: int, tag: str,
     launches = {k: fn.launches for k, fn in fns.items()}
     log(f"{tag} launches in {steps} steps: {launches}")
     check_launches(tag, launches, want)
+    check_table_scatters(tag, state.cfg, launches, timed)
     curve = [x.item() for x in losses] + ms["loss"].tolist()
     if not np.isfinite(curve).all():
         raise AssertionError(f"{tag} non-finite loss: {curve}")
@@ -1685,11 +1824,11 @@ def main() -> int:
     gather = phase_gather(card, dev, gen)
     coattn = phase_coattn(card, dev, gen)
     pair = phase_coattn_pair(card, dev, gen)
-    scatter = phase_scatter(card, dev, gen)
+    ds = bench_dataset()
+    scatter = phase_scatter(card, dev, gen, ds)
     coattn_bwd = phase_coattn_bwd(card, dev, gen)
     pair_bwd = phase_coattn_pair_bwd(card, dev, gen)
     wide = phase_coattn_wide(card, dev, gen)
-    ds = bench_dataset()
     for pool in ("sum", "max", "mean"):
         phase_serving(card, ds, pool)
     launches = phase_training(card, ds, dev)              # sum pool

@@ -1,33 +1,51 @@
-// Row scatter-add: table[ids[i], :] += src[i, :] over a zeroed f32 [V, W]
-// table. The backward of the row gather (gather.cu): the gradient of a
-// table from the gradient of its gathered rows.
+// Grouped row scatter-add: table = 0, then table[ids_s[i], :] += src_s[i, :]
+// for every segment s (up to kMaxSegs of them, one row width W), into an f32
+// [V, W] table. The backward of the row gather (gather.cu): the gradient of
+// a table from the gradients of all of a step's lookups into it, so a table
+// costs one host call a step however many times the step reads it.
 //
 // Replaces the transpose of score_tpu/kernels/gather.py:gather_rows_pallas
 // (and of the jnp.take of the JAX package's lookups), which the TPU runs as
 // XLA's own scatter-add: the Pallas kernel has no backward of its own.
 //
-// Bound on the H100: bytes, and contention on repeated ids. Each source row
-// is read once and added into its table row; there is no other
-// arithmetic. The design:
-//   * consecutive threads take consecutive VEC-float vectors of the flat
-//     source (VEC = 4 where the row length and both base pointers allow,
-//     else 2 or 1), so a warp reads one contiguous span;
-//   * each vector goes into the table with one vector atomicAdd (float4 and
-//     float2 atomics into global memory are native on sm_90): a few lanes a
-//     row, f32 adds in L2;
-//   * a vector of zeros is skipped. Masked neighbour slots carry id 0 and a
-//     gradient of exact zeros, so the pad row, which would take a large
-//     share of all adds, takes almost none. Skipping x + 0 changes no sum
-//     (x + (-0) == x, and 0 + (-0) == +0 as index_add_ gives).
+// Bound on the H100: bytes. Each source row is read once and added into
+// its table row, and the table is written once; there is no other
+// arithmetic. Contention is not what limits it: a training batch's ids
+// repeat little (chip_smoke.py's [scatter] counts the distinct ids of a
+// real batch), so the adds need no aggregation.
+// The design:
+//   * the table is zeroed by cudaMemsetAsync on the caller's stream, and
+//     one launch then covers every segment: segment s owns a range of
+//     blocks in proportion to its vectors (at least one), of a grid of at
+//     most kBlocksPerSm a multiprocessor, each block looping over its
+//     segment's vectors;
+//   * consecutive threads take consecutive VEC-float vectors of a
+//     segment's flat source (VEC = 4 where W and every base pointer allow,
+//     else 2 or 1), so a warp reads one contiguous span; a thread loads
+//     one vector a pass and, only where it is not zero, its row's id (an
+//     occupancy-sized grid with several loads a lane in flight, as the
+//     gather has, was no faster on the H100: the reductions in L2, not
+//     the loads, set the time);
+//   * each vector goes into the table with one vector atomicAdd (float4
+//     and float2 atomics into global memory are native on sm_90; the
+//     result is unused, so it compiles to a reduction in L2);
+//   * a vector of zeros is skipped. Masked neighbour slots carry id 0 and
+//     a gradient of exact zeros, so the pad row, about half of a batch's
+//     ids, takes almost no adds. Skipping x + 0 changes no sum (x + (-0)
+//     == x, and 0 + (-0) == +0 as index_add_ gives);
+//   * 32-bit offsets where every one fits, and a shift for the row of a
+//     vector where the vectors a row are a power of two.
 // The order of the adds to one row is not fixed, so float sums differ from
 // the plain version's in the last bits; integer-valued sources are exact.
-// Popular ids still contend; a sort- or warp-aggregated reduction is the
-// next step.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxSegs = 4;
+constexpr int kBlocksPerSm = 32;   // the grid's cap, a multiprocessor
 
 __device__ __forceinline__ bool nonzero(float x) { return x != 0.f; }
 __device__ __forceinline__ bool nonzero(float2 x) {
@@ -37,62 +55,126 @@ __device__ __forceinline__ bool nonzero(float4 x) {
   return x.x != 0.f || x.y != 0.f || x.z != 0.f || x.w != 0.f;
 }
 
+struct Segments {
+  const float* src[kMaxSegs];
+  const int32_t* ids[kMaxSegs];
+  long long vecs[kMaxSegs];            // vectors of the segment's source
+  int first_block[kMaxSegs + 1];       // segment s: [first_block[s], [s+1])
+};
+
 template <typename Vec, typename Index>
-__global__ void scatter_add_kernel(const Vec* __restrict__ src,
-                                   const int32_t* __restrict__ ids,
-                                   Vec* __restrict__ table, Index total,
-                                   Index vecs_per_row) {
-  const Index stride = (Index)gridDim.x * blockDim.x;
-  for (Index g = (Index)blockIdx.x * blockDim.x + threadIdx.x; g < total;
+__global__ void __launch_bounds__(kThreads)
+scatter_add_kernel(const Segments seg, Vec* __restrict__ table, int vpr,
+                   int vpr_shift) {
+  // the block's segment, picked with constant indices only: a parameter
+  // array indexed by a variable is first copied to each thread's local
+  // memory (120 bytes a thread, more time than the adds at these sizes)
+  const int b = blockIdx.x;
+  const bool s1 = b >= seg.first_block[1], s2 = b >= seg.first_block[2],
+             s3 = b >= seg.first_block[3];
+  const Vec* __restrict__ src = reinterpret_cast<const Vec*>(
+      s3 ? seg.src[3] : s2 ? seg.src[2] : s1 ? seg.src[1] : seg.src[0]);
+  const int32_t* __restrict__ ids =
+      s3 ? seg.ids[3] : s2 ? seg.ids[2] : s1 ? seg.ids[1] : seg.ids[0];
+  const Index total = (Index)(s3 ? seg.vecs[3] : s2 ? seg.vecs[2]
+                              : s1 ? seg.vecs[1] : seg.vecs[0]);
+  const int first = s3 ? seg.first_block[3] : s2 ? seg.first_block[2]
+                    : s1 ? seg.first_block[1] : seg.first_block[0];
+  const int end = s3 ? seg.first_block[4] : s2 ? seg.first_block[3]
+                  : s1 ? seg.first_block[2] : seg.first_block[1];
+  const Index stride = (Index)(end - first) * kThreads;
+  for (Index g = (Index)(b - first) * kThreads + threadIdx.x; g < total;
        g += stride) {
-    const Vec x = src[g];
+    const Vec x = __ldg(src + g);
     if (!nonzero(x)) continue;
-    const Index row = g / vecs_per_row;
-    const Index col = g - row * vecs_per_row;
-    atomicAdd(table + (Index)__ldg(ids + row) * vecs_per_row + col, x);
+    const Index row = vpr_shift >= 0 ? g >> vpr_shift : g / vpr;
+    atomicAdd(table + (Index)__ldg(ids + row) * vpr + (g - row * vpr), x);
   }
 }
 
-template <typename Vec>
-void launch(const float* src, const int32_t* ids, float* table,
-            long long n_ids, long long vecs_per_row, long long table_vecs,
-            cudaStream_t stream) {
-  const long long total = n_ids * vecs_per_row;
-  const int threads = 256;
-  long long blocks = (total + threads - 1) / threads;
-  if (blocks > 132LL * 32) blocks = 132LL * 32;  // grid-stride beyond this
-  if (total < (1LL << 30) && table_vecs < (1LL << 31)) {
-    scatter_add_kernel<Vec, int32_t><<<(unsigned)blocks, threads, 0, stream>>>(
-        (const Vec*)src, ids, (Vec*)table, (int32_t)total,
-        (int32_t)vecs_per_row);
-  } else {
-    scatter_add_kernel<Vec, int64_t><<<(unsigned)blocks, threads, 0, stream>>>(
-        (const Vec*)src, ids, (Vec*)table, (int64_t)total,
-        (int64_t)vecs_per_row);
+int num_sms() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
+  return sms;
+}
+
+template <typename Vec, typename Index>
+void launch(Segments seg, int n_segs, float* table, int vpr,
+            cudaStream_t stream) {
+  const long long cap = (long long)kBlocksPerSm * num_sms();
+  long long all = 0;
+  for (int s = 0; s < n_segs; ++s) all += seg.vecs[s];
+  // each segment's share of the grid, at least one block, and no more than
+  // one a kThreads vectors
+  int blocks = 0;
+  for (int s = 0; s < n_segs; ++s) {
+    seg.first_block[s] = blocks;
+    long long b = (cap * seg.vecs[s] + all - 1) / all;
+    const long long most = (seg.vecs[s] + kThreads - 1) / kThreads;
+    if (b > most) b = most;
+    blocks += (int)(b > 0 ? b : 1);
+  }
+  for (int s = n_segs; s <= kMaxSegs; ++s) seg.first_block[s] = blocks;
+  const int shift = (vpr & (vpr - 1)) == 0 ? __builtin_ctz(vpr) : -1;
+  scatter_add_kernel<Vec, Index><<<blocks, kThreads, 0, stream>>>(
+      seg, (Vec*)table, vpr, shift);
 }
 
 }  // namespace
 
-// src [n_ids, W] f32, ids [n_ids] int32 in [0, num_rows), table
-// [num_rows, W] f32 (zeroed by the caller). The vector is the widest of 4,
-// 2 and 1 floats that W and both base pointers allow.
-extern "C" int scatter_add_rows(const float* src, const int32_t* ids,
-                                float* table, long long n_ids,
-                                long long num_rows, long long W,
-                                void* stream) {
-  if (n_ids <= 0 || W <= 0) return 0;
-  const uintptr_t a = (uintptr_t)src | (uintptr_t)table | (uintptr_t)(W * 4);
+// Up to 4 segments (src_s [n_s, W] f32, ids_s [n_s] int32 in [0,
+// num_rows)) of one W into table [num_rows, W] f32, zeroed first on the
+// same stream; a segment with n_s <= 0 is skipped. The vector is the
+// widest of 4, 2 and 1 floats that W and every base pointer allow.
+extern "C" int scatter_add_segments(
+    const float* src0, const int32_t* ids0, long long n0, const float* src1,
+    const int32_t* ids1, long long n1, const float* src2, const int32_t* ids2,
+    long long n2, const float* src3, const int32_t* ids3, long long n3,
+    float* table, long long num_rows, long long W, void* stream) {
+  if (W <= 0 || num_rows < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const cudaError_t err =
+      cudaMemsetAsync(table, 0, (size_t)(num_rows * W * 4), s);
+  if (err != cudaSuccess) return (int)err;
+  const float* srcs[kMaxSegs] = {src0, src1, src2, src3};
+  const int32_t* idss[kMaxSegs] = {ids0, ids1, ids2, ids3};
+  const long long ns[kMaxSegs] = {n0, n1, n2, n3};
+  Segments seg = {};
+  int n_segs = 0;
+  uintptr_t a = (uintptr_t)table | (uintptr_t)(W * 4);
+  for (int i = 0; i < kMaxSegs; ++i) {
+    if (ns[i] <= 0) continue;
+    seg.src[n_segs] = srcs[i];
+    seg.ids[n_segs] = idss[i];
+    seg.vecs[n_segs] = ns[i];   // rows for now; vectors below
+    a |= (uintptr_t)srcs[i];
+    ++n_segs;
+  }
+  if (n_segs == 0) return (int)cudaGetLastError();
   const int vec = (a & 15u) == 0 ? 4 : (a & 7u) == 0 ? 2 : 1;
   const long long vpr = W / vec;
-  const long long table_vecs = num_rows * vpr;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (vec) {
-    case 4: launch<float4>(src, ids, table, n_ids, vpr, table_vecs, s); break;
-    case 2: launch<float2>(src, ids, table, n_ids, vpr, table_vecs, s); break;
-    case 1: launch<float>(src, ids, table, n_ids, vpr, table_vecs, s); break;
-    default: return (int)cudaErrorInvalidValue;
+  if (vpr > (1LL << 30)) return (int)cudaErrorInvalidValue;
+  long long most = num_rows * vpr;
+  for (int i = 0; i < n_segs; ++i) {
+    seg.vecs[i] *= vpr;
+    if (seg.vecs[i] > most) most = seg.vecs[i];
   }
+  // 32-bit offsets where every one, and a loop's step past the end, fits
+  const bool narrow = most < (1LL << 29);
+  const int v = (int)vpr;
+#define SCATTER(VEC)                                          \
+  narrow ? launch<VEC, int>(seg, n_segs, table, v, s)         \
+         : launch<VEC, long long>(seg, n_segs, table, v, s)
+  switch (vec) {
+    case 4: SCATTER(float4); break;
+    case 2: SCATTER(float2); break;
+    default: SCATTER(float); break;
+  }
+#undef SCATTER
   return (int)cudaGetLastError();
 }
 

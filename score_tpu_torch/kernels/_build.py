@@ -83,10 +83,12 @@ def _build(name: str) -> Path:
     return lib
 
 
-def load(name: str, entry: str, argtypes: Sequence) -> Callable:
+def load(name: str, entry: str, argtypes: Sequence,
+         restype=ctypes.c_int) -> Callable:
     """C entry point `entry` of `csrc/<name>.cu`, built at first use; it
-    returns a CUDA error code (`check` raises on one). Later calls return
-    the same function object and set nothing on it."""
+    returns `restype`, for a launching entry a CUDA error code (`check`
+    raises on one). Later calls return the same function object and set
+    nothing on it."""
     fn = _fns.get((name, entry))
     if fn is not None:
         return fn
@@ -99,7 +101,7 @@ def load(name: str, entry: str, argtypes: Sequence) -> Callable:
             err.argtypes = [ctypes.c_int]
             _libs[name] = lib
         fn = getattr(lib, entry)
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         fn.argtypes = list(argtypes)
         _fns[(name, entry)] = fn
         return fn

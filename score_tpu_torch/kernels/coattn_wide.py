@@ -12,7 +12,10 @@ stands in for, what bounds it on the H100 and how the design meets that.
 Each function here takes the inputs `coattn_cand._check` accepted and
 computes what `coattn.cross_coattn_pair_plain` and
 `coattn.cross_coattn_pair_bwd_plain` compute; on CPU tensors it runs
-those plain versions.
+those plain versions. The backward's shared memory grows with C (a
+block keeps every candidate's dWr rows of an item): at d = 128 with
+n = m = 64 it takes C up to 17, and raises ValueError past what
+fits.
 """
 
 from __future__ import annotations
@@ -29,11 +32,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _POOL_CODE = {"sum": 0, "mean": 1, "max": 2}
 _FWD_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 9
                  + (ctypes.c_void_p,))
-_BWD_ARGTYPES = ((ctypes.c_void_p,) * 16 + (ctypes.c_int,)
+_BWD_ARGTYPES = ((ctypes.c_void_p,) * 14 + (ctypes.c_longlong,)
                  + (ctypes.c_void_p,) + (ctypes.c_int,) * 9
                  + (ctypes.c_void_p,))
-# per-block partials of dWr: X^T Y over fixed row ranges, summed in order
-_DWR_PARTS = 256
 
 
 def cross_coattn_wide(Eu, Ei, mu, mi, Wr, eu, ei, pool: str = "sum",
@@ -85,17 +86,22 @@ def cross_coattn_wide_bwd(Eu, Ei, mu, mi, Wr, eu, ei, dcu, dci,
     rest = [x.contiguous() for x in (eu, ei, dcu, dci)]
     dEu, dEi = torch.empty_like(ins[0]), torch.empty_like(ins[1])
     deu, dei = torch.empty_like(rest[0]), torch.empty_like(rest[1])
-    dei_acc = torch.empty(B, C, d, dtype=torch.float32, device=dev)
-    xy = torch.empty(2, B * T * (C + 1), d, dtype=torch.float32, device=dev)
-    part = torch.empty(_DWR_PARTS, d, d, dtype=torch.float32, device=dev)
+    shape = (B, C, T, n, m, d)
+    codes = (_POOL_CODE[pool], _DTYPE_CODE[Eu.dtype])
+    floats = _build.load("coattn_wide", "wide_bwd_scratch_floats",
+                         (ctypes.c_int,) * 8, ctypes.c_longlong)(*shape,
+                                                                 *codes)
+    if floats < 1:
+        raise ValueError(f"cross_coattn_wide_bwd: the kernel's shared "
+                         f"memory does not hold B, C, T, n, m, d = {shape}")
+    # the blocks' partials of dWr, summed in block order by the kernel
+    part = torch.empty(floats, dtype=torch.float32, device=dev)
     _build.launch("coattn_wide",
                   _build.load("coattn_wide", "wide_bwd", _BWD_ARGTYPES),
                   dev.index, *(x.data_ptr() for x in ins), Wr32.data_ptr(),
                   *(x.data_ptr() for x in rest),
-                  *(x.data_ptr() for x in (dEu, dEi, deu, dei, dei_acc, xy,
-                                           part)),
-                  _DWR_PARTS, dWr.data_ptr(), B, C, T, n, m, d,
-                  int(target_aware), _POOL_CODE[pool], _DTYPE_CODE[Eu.dtype])
+                  *(x.data_ptr() for x in (dEu, dEi, deu, dei, part)),
+                  floats, dWr.data_ptr(), *shape, int(target_aware), *codes)
     cross_coattn_wide_bwd.launches += 1
     return dEu, dEi, deu, dei, dWr
 

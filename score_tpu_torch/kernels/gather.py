@@ -5,14 +5,17 @@ Counterpart of score_tpu/kernels/gather.py:gather_rows_pallas and of the
 transpose XLA takes of it. On CUDA tensors `gather_rows` launches the
 hand-written kernel in `score_tpu_torch/csrc/gather.cu` and, when the table
 needs a gradient, its backward launches `scatter_add_rows`
-(`score_tpu_torch/csrc/scatter_add.cu`); each source note says what bounds
-it on the H100 and how the design meets that. On CPU tensors both run their
+(`score_tpu_torch/csrc/scatter_add.cu`); `gather_rows_grouped` takes all of
+a step's lookups into one table, so that their backward is one
+scatter-add. Each source note says what bounds it on the H100 and how the
+design meets that. On CPU tensors both run their
 plain versions. There is no fallback from one to the other.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -22,9 +25,12 @@ _DTYPES = (torch.float32, torch.bfloat16, torch.int32)
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
              ctypes.c_void_p)
-_SCATTER_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-                     ctypes.c_void_p)
+# segments a scatter-add takes: (src, ids, n) each, by value
+_MAX_SEGMENTS = 4
+_SCATTER_ARGTYPES = ((ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong)
+                     * _MAX_SEGMENTS
+                     + (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                        ctypes.c_void_p))
 
 
 def gather_rows_plain(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -33,14 +39,29 @@ def gather_rows_plain(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         *ids.shape, table.shape[1])
 
 
-def scatter_add_rows_plain(ids: torch.Tensor, src: torch.Tensor,
-                           num_rows: int) -> torch.Tensor:
-    """ids [...] int32, src [..., W] f32 -> [num_rows, W] f32 table with
-    table[ids[j]] += src[j] from zeros."""
-    W = src.shape[-1]
-    return torch.zeros(num_rows, W, dtype=src.dtype,
-                       device=src.device).index_add_(
-        0, ids.reshape(-1), src.reshape(-1, W))
+def _segments(ids, src) -> Tuple[list, list]:
+    """ids and src as equal-length lists of segments (a lone tensor is
+    one segment)."""
+    if isinstance(ids, torch.Tensor):
+        return [ids], [src]
+    ids, src = list(ids), list(src)
+    if len(ids) != len(src) or not ids:
+        raise ValueError(f"scatter_add_rows: {len(ids)} id segments for "
+                         f"{len(src)} source segments")
+    return ids, src
+
+
+def scatter_add_rows_plain(ids, src, num_rows: int) -> torch.Tensor:
+    """ids [...] int32, src [..., W] f32, or equal-length sequences of such
+    segments -> [num_rows, W] f32 table with table[ids[j]] += src[j] from
+    zeros, the segments added in order."""
+    ids, src = _segments(ids, src)
+    W = src[0].shape[-1]
+    table = torch.zeros(num_rows, W, dtype=src[0].dtype,
+                        device=src[0].device)
+    for i, x in zip(ids, src):
+        table.index_add_(0, i.reshape(-1), x.reshape(-1, W))
+    return table
 
 
 def _device_index(name: str, x: torch.Tensor, ids: torch.Tensor) -> int:
@@ -79,49 +100,81 @@ def _gather_launch(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def scatter_add_rows(ids: torch.Tensor, src: torch.Tensor,
-                     num_rows: int) -> torch.Tensor:
-    """ids [...] int32, src [..., W] f32 -> [num_rows, W] f32 with
-    table[ids[j]] += src[j] from zeros: the CUDA kernel on CUDA tensors, the
-    plain version on the CPU. Out-of-range ids are the caller's bug."""
-    if src.is_cpu:
+def scatter_add_rows(ids, src, num_rows: int) -> torch.Tensor:
+    """ids [...] int32, src [..., W] f32, or equal-length sequences of up
+    to _MAX_SEGMENTS such segments (one W) -> [num_rows, W] f32 with
+    table[ids[j]] += src[j] from zeros: on CUDA tensors the kernel, one
+    launch for all the segments, its table zeroed on the same stream; on
+    the CPU the plain version. Out-of-range ids are the caller's bug."""
+    ids, src = _segments(ids, src)
+    if src[0].is_cpu:
         return scatter_add_rows_plain(ids, src, num_rows)
-    index = _device_index("scatter_add_rows", src, ids)
-    if src.dtype != torch.float32:
-        raise ValueError(f"scatter_add_rows: src must be float32, got "
-                         f"{src.dtype}")
-    W = src.shape[-1]
-    if tuple(src.shape[:-1]) != tuple(ids.shape):
-        raise ValueError(f"scatter_add_rows: src {tuple(src.shape)} does not "
-                         f"match ids {tuple(ids.shape)}")
-    src_c, ids_c = src.contiguous(), ids.contiguous()
-    table = src.new_zeros((num_rows, W))
-    n = ids_c.numel()
-    if n == 0 or W == 0:
-        return table
+    if len(ids) > _MAX_SEGMENTS:
+        raise ValueError(f"scatter_add_rows: {len(ids)} segments; the "
+                         f"kernel takes at most {_MAX_SEGMENTS}")
+    W = src[0].shape[-1]
+    index = _device_index("scatter_add_rows", src[0], ids[0])
+    live = []
+    for i, x in zip(ids, src):
+        if (_device_index("scatter_add_rows", x, i) != index
+                or x.dtype != torch.float32):
+            raise ValueError(f"scatter_add_rows: sources must be float32 "
+                             f"on one device, got {x.dtype} on {x.device}")
+        if tuple(x.shape) != (*i.shape, W):
+            raise ValueError(f"scatter_add_rows: src {tuple(x.shape)} does "
+                             f"not match ids {tuple(i.shape)} and W={W}")
+        if i.numel():
+            live.append((x.contiguous(), i.contiguous()))
+    table = src[0].new_empty((num_rows, W))
+    if not live or W == 0:
+        return table.zero_()
+    args = []
+    for x, i in live:
+        args += [x.data_ptr(), i.data_ptr(), i.numel()]
+    args += [None, None, 0] * (_MAX_SEGMENTS - len(live))
     _build.launch("scatter_add",
-                  _build.load("scatter_add", "scatter_add_rows",
+                  _build.load("scatter_add", "scatter_add_segments",
                               _SCATTER_ARGTYPES),
-                  index, src_c.data_ptr(), ids_c.data_ptr(), table.data_ptr(),
-                  n, num_rows, W)
+                  index, *args, table.data_ptr(), num_rows, W)
     scatter_add_rows.launches += 1
     return table
 
 
 class _GatherRows(torch.autograd.Function):
-    """table[ids] with the scatter-add as its backward (no gradient for
-    the ids)."""
+    """table[ids] for each of a group of ids tensors, with one grouped
+    scatter-add as the backward (no gradient for the ids). A segment whose
+    output gets no gradient (None: it does not reach the loss) or is empty
+    is left out of the scatter."""
 
     @staticmethod
-    def forward(ctx, table, ids):
-        ctx.save_for_backward(ids)
+    def forward(ctx, table, *ids):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(*ids)
         ctx.num_rows = table.shape[0]
-        return _gather_launch(table, ids)
+        return tuple(_gather_launch(table, i) for i in ids)
 
     @staticmethod
-    def backward(ctx, dout):
-        (ids,) = ctx.saved_tensors
-        return scatter_add_rows(ids, dout, ctx.num_rows), None
+    def backward(ctx, *douts):
+        ids = ctx.saved_tensors
+        live = [(i, g) for i, g in zip(ids, douts)
+                if g is not None and g.numel()]
+        grad = None
+        if live:
+            grad = scatter_add_rows([i for i, _ in live],
+                                    [g for _, g in live], ctx.num_rows)
+        return (grad,) + (None,) * len(ids)
+
+
+def _trainable(table: torch.Tensor) -> bool:
+    """Whether lookups into `table` need its gradient; such a table must be
+    f32 (training gathers from the f32 master tables and casts after the
+    gather)."""
+    if not (table.requires_grad and torch.is_grad_enabled()):
+        return False
+    if table.dtype != torch.float32:
+        raise ValueError(f"gather_rows: a table that requires a gradient "
+                         f"must be float32, got {table.dtype}")
+    return True
 
 
 def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -129,16 +182,24 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     [..., W], out[...] = table[ids[...]].
 
     Differentiable in the table when it requires a gradient: the gradient
-    is the f32 scatter-add of the output's gradient, so such a table must
-    be f32 (training gathers from the f32 master tables and casts after
-    the gather). Out-of-range ids are the caller's bug (no clamping); row 0
-    is a row like any other."""
-    if not (table.requires_grad and torch.is_grad_enabled()):
+    is the f32 scatter-add of the output's gradient. Out-of-range ids are
+    the caller's bug (no clamping); row 0 is a row like any other."""
+    if not _trainable(table):
         return _gather_launch(table, ids)
-    if table.dtype != torch.float32:
-        raise ValueError(f"gather_rows: a table that requires a gradient "
-                         f"must be float32, got {table.dtype}")
-    return _GatherRows.apply(table, ids)
+    return _GatherRows.apply(table, ids)[0]
+
+
+def gather_rows_grouped(table: torch.Tensor,
+                        ids: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """[gather_rows(table, i) for i in ids], one gather launch each, whose
+    backward is one scatter-add launch for all of them (up to
+    _MAX_SEGMENTS on a CUDA device; its table zeroed on the stream, not by
+    a separate fill), where separate lookups would take one zeroed table
+    and one launch each and an add of the dense gradients. Without a
+    gradient to compute it is the separate gathers."""
+    if not ids or not _trainable(table):
+        return [_gather_launch(table, i) for i in ids]
+    return list(_GatherRows.apply(table, *ids))
 
 
 gather_rows.launches = 0

@@ -145,8 +145,12 @@ class ScoreModel(nn.Module):
         cfg, dual = self.cfg, self.dual
         cdt = self.compute_dtype
         sv = batch["slot_valid"]                                  # [B, T]
-        eu = self.tables.user_emb(batch["user"]).to(cdt)          # [B, d]
-        ei = self.tables.item_emb(batch["cand"]).to(cdt)          # [B, C, d]
+        # every lookup of the step, one grouped gather a table
+        users = [batch["user"]] + ([batch["i_hist"]] if dual else [])
+        user_rows, (ei, Eu) = self.tables.lookup(
+            users, [batch["cand"], batch["u_hist"]])
+        eu = user_rows[0].to(cdt)                                 # [B, d]
+        ei = ei.to(cdt)                                           # [B, C, d]
         if neg_shift is not None:
             if ei.shape[1] != 1:
                 raise ValueError(f"neg_shift needs C == 1 candidates, got "
@@ -155,12 +159,12 @@ class ScoreModel(nn.Module):
         B, C = ei.shape[0], ei.shape[1]
         T = sv.shape[1]
         # user side: shared by the candidates
-        Eu = self.tables.item_emb(batch["u_hist"]).to(cdt)        # [B,T,n,d]
+        Eu = Eu.to(cdt)                                           # [B,T,n,d]
         mu = _nbr_mask(batch["u_cnt"], Eu.shape[2], sv)           # [B,T,n]
         eu_c = eu[:, None].expand(B, C, eu.shape[-1])
         if dual:
             # [B,C,T,m,d]; [B,1,T,m,d] before the rolls with neg_shift
-            Ei = self.tables.user_emb(batch["i_hist"]).to(cdt)
+            Ei = user_rows[1].to(cdt)
             i_cnt = batch["i_cnt"]                                # [B, C, T]
             if neg_shift is not None:
                 i_cnt = roll_candidates(i_cnt, neg_shift)

@@ -206,6 +206,9 @@ def _wide_inputs(B, C, T, n, m, d, variant, dtype, device):
     if variant == "masked":
         args[2][B - 1] = False
         args[3][B - 1, C - 1] = False
+    elif variant == "allmasked":
+        args[2][:] = False
+        args[3][:] = False
     elif variant == "unaligned":
         args = [_unaligned(a) if i in (0, 1, 5, 6) else a
                 for i, a in enumerate(args)]
@@ -252,14 +255,34 @@ def test_wide_kernel(cuda, B, C, T, n, m, d, ta, variant, pool, dtype):
             assert (got[1][B - 1, C - 1] == 0).all()
 
 
-@pytest.mark.parametrize("B,C,T,n,m,d,ta,variant", WIDE_CASES[:-1],
-                         ids=WIDE_IDS[:-1])
+# More backward shapes: one candidate, five (three chunks of the kernel's
+# two), one slot, d = 96 (a quarter of the lanes' components past d), n =
+# m = 64 at d = 64 and d = 128 (one warp a block), C = 5 there (the dWr
+# accumulator in device memory), every row masked, and no target.
+WIDE_BWD_CASES = WIDE_CASES[:-1] + [
+    (3, 1, 3, 10, 10, 64, True, ""),
+    (3, 5, 3, 10, 10, 64, True, ""),
+    (5, 2, 1, 10, 10, 64, True, ""),
+    (2, 2, 2, 10, 10, 96, True, ""),
+    (2, 2, 2, 64, 64, 64, True, ""),
+    (2, 2, 2, 64, 64, 128, True, ""),
+    (1, 5, 2, 64, 64, 128, True, ""),
+    (3, 2, 3, 10, 10, 64, True, "allmasked"),
+    (3, 3, 3, 10, 10, 64, False, ""),
+]
+WIDE_BWD_IDS = ["-".join(map(str, c[:7])) + (f"-{c[7]}" if c[7] else "")
+                for c in WIDE_BWD_CASES]
+
+
+@pytest.mark.parametrize("B,C,T,n,m,d,ta,variant", WIDE_BWD_CASES,
+                         ids=WIDE_BWD_IDS)
 @pytest.mark.parametrize("pool", ["sum", "mean"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wide_bwd_kernel(cuda, B, C, T, n, m, d, ta, variant, pool, dtype):
     """The wide backward through `cross_coattn_pair_bwd` (and, for the sum
     pool, `cross_coattn_cand_bwd`), relative to each gradient's largest
-    value as the tuned backward's tests; dWr the same run to run."""
+    value as the tuned backward's tests; all five gradients bit-equal run
+    to run."""
     args = _wide_inputs(B, C, T, n, m, d, variant, dtype, cuda)
     rng = np.random.default_rng(B * C + d)
     grads = [torch.from_numpy(rng.normal(size=(B, C, T, d)).astype(
@@ -288,7 +311,10 @@ def test_wide_bwd_kernel(cuda, B, C, T, n, m, d, ta, variant, pool, dtype):
         if variant == "masked":
             assert (got[0][B - 1] == 0).all()
             assert (got[1][B - 1, C - 1] == 0).all()
-        assert torch.equal(call()[4], got[4])   # dWr the same run to run
+        if variant == "allmasked":
+            assert all((g == 0).all() for g in got)
+        again = call()
+        assert all(torch.equal(a, g) for a, g in zip(again, got))
 
 
 @pytest.mark.parametrize("pool", ["sum", "mean", "max"])
@@ -355,6 +381,118 @@ def test_scatter_add_kernel(cuda, V, W, shape):
         else:
             torch.testing.assert_close(got.cpu(), want, rtol=1e-5,
                                        atol=1e-5)
+
+
+def _segments(rng, V, W, lengths, ids_fn=None):
+    """Integer-valued and random sources over ids of each length (40% of
+    them the pad row 0, whose rows are zeros, unless ids_fn gives them)."""
+    ids, ints, noise = [], [], []
+    for n in lengths:
+        i = (ids_fn(n) if ids_fn else rng.integers(0, V, n)).astype(np.int32)
+        if ids_fn is None:
+            i[rng.random(n) < 0.4] = 0
+        a = rng.integers(-8, 9, (n, W)).astype(np.float32)
+        b = rng.normal(size=(n, W)).astype(np.float32)
+        a[i == 0] = 0.0
+        b[i == 0] = 0.0
+        ids.append(torch.from_numpy(i))
+        ints.append(torch.from_numpy(a))
+        noise.append(torch.from_numpy(b))
+    return ids, ints, noise
+
+
+def _check_grouped(cuda, V, ids, srcs, exact, views=None):
+    """One launch for the group, against index_add_ in segment order:
+    exact, or within 1e-5 relative to the table's largest value (rows
+    that take thousands of adds round in another order)."""
+    views = views or (lambda x: x.to(cuda))
+    before = tgather.scatter_add_rows.launches
+    got = tgather.scatter_add_rows([i.to(cuda) for i in ids],
+                                   [views(x) for x in srcs], V)
+    torch.cuda.synchronize()
+    assert tgather.scatter_add_rows.launches == before + 1
+    want = tgather.scatter_add_rows_plain(ids, srcs, V)
+    if exact:
+        assert torch.equal(got.cpu(), want)
+    else:
+        scale = max(want.abs().max().item(), 1.0)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5,
+                                   atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("segs", [1, 2, 3, 4])
+@pytest.mark.parametrize("W", [1, 2, 3, 32, 128])
+def test_grouped_scatter_add_kernel(cuda, segs, W):
+    """Segments of several lengths into one table, at each float4, float2
+    and float row width."""
+    rng = np.random.default_rng(segs * 1000 + W)
+    lengths = [4096 * 9 * 10 // 40, 4096 // 40, 700, 5][:segs]
+    ids, ints, noise = _segments(rng, 900, W, lengths)
+    _check_grouped(cuda, 900, ids, ints, exact=True)
+    _check_grouped(cuda, 900, ids, noise, exact=False)
+
+
+@pytest.mark.parametrize("case", ["empty", "offset", "one id", "zipf"])
+def test_grouped_scatter_add_kernel_edges(cuda, case):
+    """An empty segment among others; sources in offset views (4-byte
+    aligned only: the scalar vectors); every id the same row; Zipf ids,
+    a few rows taking most adds."""
+    rng = np.random.default_rng(len(case))
+    V, W = 5000, 32
+    views, ids_fn = None, None
+    lengths = [20000, 0, 4096]
+    if case == "offset":
+        views = lambda x: _unaligned(x.to(cuda))
+    elif case == "one id":     # few rows: one sum of all, in any order
+        ids_fn = lambda n: np.full(n, 77)
+        lengths = [2000, 0, 300]
+    elif case == "zipf":       # the top row takes about a quarter
+        ids_fn = lambda n: np.minimum(rng.zipf(1.3, n), V - 1)
+        lengths = [8000, 0, 2000]
+    ids, ints, noise = _segments(rng, V, W, lengths, ids_fn)
+    _check_grouped(cuda, V, ids, ints, exact=True, views=views)
+    _check_grouped(cuda, V, ids, noise, exact=False, views=views)
+    with pytest.raises(ValueError):     # one launch takes at most four
+        tgather.scatter_add_rows([i.to(cuda) for i in ids + ids],
+                                 [x.to(cuda) for x in ints + ints], V)
+
+
+def test_grouped_lookup_one_scatter_a_table(cuda):
+    """EmbeddingTables.lookup: two lookups into each of two tables, and
+    three into a shared one, take one scatter-add a table in the backward,
+    equal (integer-valued gradients) to index_add of every lookup."""
+    from score_tpu_torch.nn.embed import EmbeddingTables
+    rng = np.random.default_rng(3)
+    U, I, d = 500, 900, 32
+    for shared in (False, True):
+        tables = EmbeddingTables(U, I, d, shared=shared).to(cuda)
+        with torch.no_grad():
+            for p in tables.parameters():
+                p.copy_(torch.from_numpy(rng.normal(size=p.shape)))
+        users = [torch.from_numpy(rng.integers(0, U + 1, s).astype(
+            np.int32)).to(cuda) for s in ((64,), (64, 2, 3, 4))][:2 - shared]
+        items = [torch.from_numpy(rng.integers(0, I + 1, s).astype(
+            np.int32)).to(cuda) for s in ((64, 1), (64, 3, 5))]
+        before = (tgather.gather_rows.launches,
+                  tgather.scatter_add_rows.launches)
+        outs = [x for part in tables.lookup(users, items) for x in part]
+        douts = [torch.from_numpy(rng.integers(-8, 9, o.shape).astype(
+            np.float32)).to(cuda) for o in outs]
+        params = list(tables.parameters())
+        grads = torch.autograd.grad(
+            sum((o * g).sum() for o, g in zip(outs, douts)), params)
+        torch.cuda.synchronize()
+        assert (tgather.gather_rows.launches,
+                tgather.scatter_add_rows.launches) == (
+            before[0] + len(outs), before[1] + len(params))
+        rows = [torch.where(u > 0, u + I, 0) if shared else u for u in users]
+        want = [torch.zeros_like(p) for p in params]
+        for k, (r, g) in enumerate(zip(rows + items, douts)):
+            # the parameters: table, or user_table and item_table
+            tgt = want[0] if shared or k < len(rows) else want[1]
+            tgt.index_add_(0, r.reshape(-1).long(), g.reshape(-1, d))
+        for g, w in zip(grads, want):
+            assert torch.equal(g, w)
 
 
 def test_gather_backward_launches_scatter_add(cuda):
@@ -470,6 +608,9 @@ def test_pair_kernel(cuda, B, C, T, n, m, d, ta, variant, pool, dtype):
     elif variant == "masked":
         args[2][B - 1] = False
         args[3][B - 1, C - 1] = False
+    elif variant == "allmasked":
+        args[2][:] = False
+        args[3][:] = False
     elif variant == "unaligned":
         args = [_unaligned(a) if i in (0, 1, 5, 6) else a
                 for i, a in enumerate(args)]
