@@ -17,9 +17,12 @@ and one user at C=4096), eval (B=512 and 256, C=101), training (B=4096,
 C=2), a ragged B and configs3's own d=16 give it. The backwards run at
 BWD_SHAPES, `chip_smoke.phase_coattn_bwd`'s: training (B=4096, C=2), a
 ragged B, flat pairs (C=1) and d=16, target-aware, on output gradients
-drawn from the same generator; and the wide backward
+drawn from the same generator; the wide backward
 (`cross_coattn_pair_bwd` past d, n, m = 32, sum and mean pools) at
 WIDE_BWD_SHAPES: configs3's training shape at d=64 and d=128, and d=32
+with n = m = 40; and the wide forward (`cross_coattn_pair` past d, n, m =
+32, the sum, mean and max pools) at WIDE_FWD_SHAPES, `chip_smoke.py`'s
+WIDE_SHAPES: d=64 training, eval and serving, d=128 training and d=32
 with n = m = 40. Two times a shape, both CUDA events:
 "stream", the mean of ITERS calls of the wrapper after 3 warm-ups
 (`chip_smoke.cuda_ms`, as `chip_smoke.py` times it; where a call's host
@@ -33,7 +36,8 @@ every kernel, shape and timing each side's times (ms) in run order, their
 medians, and the ratio of A's median to B's. The candidates forward's
 keys read "B=.. C=.. <dtype> <timing>", the per-pair forward's
 "pair_fwd <pool> B=.. C=.. <dtype> <timing>", the backwards' "cand_bwd
-sum B=.. ...", "pair_bwd mean B=.. ..." and "wide_bwd <pool> B=.. ...". Exits non-zero if any run
+sum B=.. ...", "pair_bwd mean B=.. ..." and "wide_bwd <pool> B=.. ...",
+the wide forward's "wide_fwd <pool> B=.. ...". Exits non-zero if any run
 fails. About a minute a run on an H100.
 """
 
@@ -45,7 +49,7 @@ import statistics
 import subprocess
 import sys
 
-from chip_smoke import card_line
+from chip_smoke import WIDE_SHAPES, card_line
 
 PAIRS = 3
 ITERS = 50
@@ -59,6 +63,10 @@ BWD_SHAPES = [dict(B=4096, C=2), dict(B=37, C=2), dict(B=64, C=1),
 # and d=128, and d=32 with 40 neighbour rows a side
 WIDE_BWD_SHAPES = [dict(B=4096, C=2, d=64), dict(B=4096, C=2, d=128),
                    dict(B=1024, C=2, n=40, m=40, d=32)]
+# the wide forward (past d, n, m = 32), each pool: chip_smoke.WIDE_SHAPES,
+# configs3 at d=64 as training, eval and serving launch it, d=128 training,
+# and d=32 with 40 neighbour rows a side
+WIDE_FWD_SHAPES = [kw for _, kw in WIDE_SHAPES]
 
 RUN = """
 import json, sys, torch
@@ -141,13 +149,25 @@ for kw in %r:
                                                     target_aware=True))
         del args, grads
         torch.cuda.empty_cache()
+for kw in %r:
+    for dtype in (torch.bfloat16, torch.float32):
+        args = cs._cand_inputs(gen, dev, dtype, **kw)
+        key = ' '.join(f'{k}={v}' for k, v in kw.items()) + ' ' + str(
+            dtype)[6:]
+        for pool in ('sum', 'mean', 'max'):
+            time_both(f'wide_fwd {pool} ' + key, lambda: cross_coattn_pair(
+                *args, pool=pool, target_aware=True))
+        del args
+        torch.cuda.empty_cache()
 print('RESULT ' + json.dumps(out))
 """
 
 
-def run_code(fwd_shapes, bwd_shapes, wide_shapes=()) -> str:
+def run_code(fwd_shapes, bwd_shapes, wide_shapes=(),
+             wide_fwd_shapes=()) -> str:
     """The program one run executes, timing the given shapes."""
-    return RUN % (ITERS, REPLAYS, fwd_shapes, bwd_shapes, list(wide_shapes))
+    return RUN % (ITERS, REPLAYS, fwd_shapes, bwd_shapes, list(wide_shapes),
+                  list(wide_fwd_shapes))
 
 
 def run(path: str, code: str) -> dict:
@@ -188,7 +208,7 @@ def main() -> int:
     a, b = sys.argv[1:]
     card = card_line()
     shapes = in_turns(a, b, run_code(FWD_SHAPES, BWD_SHAPES,
-                                     WIDE_BWD_SHAPES))
+                                     WIDE_BWD_SHAPES, WIDE_FWD_SHAPES))
     print(json.dumps({"card": card, "pairs": PAIRS, "iters": ITERS,
                       "replays": REPLAYS, "shapes": shapes}))
     return 0

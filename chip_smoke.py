@@ -38,7 +38,10 @@ fails or no CUDA device is present.
    For every kernel: CUDA-event times of kernel, plain version and, where
    one PyTorch call computes the same function, that call; and the bound,
    the least time the card could take for the work (bytes over 3.35 TB/s
-   or f32 operations over 67 TFLOP/s, whichever is larger). The gather is
+   or operations at their peak rates, whichever is larger: f32 on the
+   CUDA cores at 67 TFLOP/s; the max pool's EuW and relation matrix on the
+   tensor cores, two bf16 passes at 989 TFLOP/s or three TF32 passes at
+   495, as the kernels split their operands). The gather is
    timed eagerly (what a step pays; below ~0.03 ms the host's time) and
    by CUDA graph (the kernel alone), `index_select` beside it both ways.
 2c. [coattn_wide]: the wide co-attention kernels (csrc/coattn_wide.cu,
@@ -164,13 +167,24 @@ TRAIN_CPU_TOL = dict(rtol=1e-4, atol=1e-5)
 LOSS_TOL = dict(rtol=1e-5, atol=1e-6)     # f32 losses, card against CPU
 EVAL_TOL, EVAL_AUC_TOL = 1e-4, 1e-3
 # the card's published peaks (H100 SXM): HBM bytes/s, f32 outside the
-# tensor cores (the kernels here do f32 FMAs on the CUDA cores)
+# tensor cores (the kernels here do f32 FMAs on the CUDA cores), and the
+# dense tensor-core rates of bf16 and TF32 products
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_MMA_FLOPS_PER_S = 989e12
+TF32_MMA_FLOPS_PER_S = 495e12
 
 
 def log(*args) -> None:
     print(*args, flush=True)
+
+
+_START = time.perf_counter()
+
+
+def mark(phase: str) -> None:
+    """Log the script's seconds so far, at the end of `phase`."""
+    log(f"[time] {phase} done at {time.perf_counter() - _START:.1f} s")
 
 
 def card_line() -> str:
@@ -220,11 +234,13 @@ def graph_ms(fn, iters: int = 50, replays: int = 5) -> float:
     return start.elapsed_time(end) / (replays * iters)
 
 
-def bound(nbytes: float, flops: float) -> dict:
+def bound(nbytes: float, flops: float, mma_ms: float = 0.0) -> dict:
     """The least time the card could take: compulsory bytes at the HBM
-    rate or f32 operations at the peak rate, whichever is longer."""
+    rate or operations at their peak rates (f32 operations on the CUDA
+    cores, and `mma_ms` of products on the tensor cores), whichever is
+    longer."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3 + mma_ms
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -239,6 +255,18 @@ _BWD_INSTANCE = re.compile(
     r"coattn_bwd_kernelI(f|13__nv_bfloat16)Li(\d+)ELb([01])ELi(\d+)E")
 _FWD_INSTANCE = re.compile(
     r"cand_fwd_kernelI(f|13__nv_bfloat16)Lb([01])ELb([01])ELi(\d)ELi(\d+)E")
+
+
+_WIDE_FWD_INSTANCE = re.compile(
+    r"wide_fwd_kernelI(f|13__nv_bfloat16)Lb([01])ELi(\d)ELi(\d)ELb([01])E")
+
+
+def _wide_fwd_name(inst) -> str:
+    dtype = "f32" if inst.group(1) == "f" else "bf16"
+    pool = "max" if inst.group(2) == "1" else "sum/mean"
+    path = "16-byte" if inst.group(5) == "1" else "scalar"
+    return (f"wide_fwd_kernel<{dtype}, {pool}, d <= {32 * int(inst.group(3))}"
+            f", n <= {16 * int(inst.group(4))}, {path}>")
 
 
 def _bwd_name(inst) -> str:
@@ -301,6 +329,7 @@ def phase_device(card: str) -> None:
                 log(f"[device]   {line.strip()}")
     for name, pattern, describe in (
             ("coattn_pair", _FWD_INSTANCE, _fwd_name),
+            ("coattn_wide", _WIDE_FWD_INSTANCE, _wide_fwd_name),
             ("coattn_cand_bwd", _BWD_INSTANCE, _bwd_name),
             ("coattn_pair_bwd", _BWD_INSTANCE, _bwd_name)):
         if name not in _build.build_log:
@@ -473,13 +502,15 @@ def phase_coattn(card: str, dev, gen) -> dict:
 
 
 def _pair_work(args, pool: str):
-    """Compulsory bytes and f32 operations of the per-pair forward on these
-    inputs: masked rows need not be read; EuW = Eu Wr once per valid user
-    row; the max pool's relation entries only for valid (j, k) pairs. The
-    sum and mean pools need no relation matrix: they take the fewer
-    operations of this form and the candidates form (`_cand_work`: w = Em
-    Wr once per (b, t), v = Es Wr^T once per unit), which needs fewer where
-    C is small."""
+    """Compulsory bytes, f32 operations on the CUDA cores and ms of
+    tensor-core products of the per-pair forward on these inputs: masked
+    rows need not be read; EuW = Eu Wr once per valid user row; the max
+    pool's relation entries only for valid (j, k) pairs, EuW and the
+    relation matrix on the tensor cores in the passes the kernels take
+    (bf16: EuW split hi + lo, two; f32: 3xTF32, three). The sum and mean
+    pools need no relation matrix: they take the fewer operations of this
+    form and the candidates form (`_cand_work`: w = Em Wr once per (b, t),
+    v = Es Wr^T once per unit), which needs fewer where C is small."""
     Eu, Ei, mu, mi, Wr, eu, ei = args
     B, Tn, n, d = Eu.shape
     C = Ei.shape[1]
@@ -491,13 +522,17 @@ def _pair_work(args, pool: str):
     if pool == "max":
         pairs = (mu.sum(-1)[:, None].double()
                  * mi.sum(-1).double()).sum().item()
-        # relation entries; per row the target term and the weighted sum
-        flops += 2 * d * pairs + 4 * d * (C * vu + vi)
-    else:
-        # per user row: score with the target folded in, weighted sum; per
-        # item row: the masked sum, score, weighted sum
-        flops = min(flops + 6 * d * C * vu + 5 * d * vi,
-                    _cand_work(args, C, backward=False)[1])
+        passes, rate = ((2, BF16_MMA_FLOPS_PER_S)
+                        if Eu.dtype == torch.bfloat16
+                        else (3, TF32_MMA_FLOPS_PER_S))
+        # EuW and the relation entries; per row the target term and the
+        # weighted sum
+        mma_ms = passes * (flops + 2 * d * pairs) / rate * 1e3
+        return moved, 4 * d * (C * vu + vi), mma_ms
+    # per user row: score with the target folded in, weighted sum; per item
+    # row: the masked sum, score, weighted sum
+    flops = min(flops + 6 * d * C * vu + 5 * d * vi,
+                _cand_work(args, C, backward=False)[1])
     return moved, flops
 
 
@@ -894,11 +929,12 @@ WIDE_SHAPES = [("d64 training", dict(B=4096, C=2, d=64)),
 
 
 def phase_coattn_wide(card: str, dev, gen) -> dict:
-    """The wide forward (each pool) and backward (sum, mean) against their
-    plain versions, through the public wrappers at widths that route to
-    them, with times and bounds; the tuned kernels must not launch. Returns
-    the kernels-line fields of both, at the d=64 training shape (bf16, the
-    sum pool), where the [d64] phase counts their launches."""
+    """The wide forward (each pool at every shape, two runs bit-equal) and
+    backward (sum, mean) against their plain versions, through the public
+    wrappers at widths that route to them, with times and bounds; the
+    tuned kernels must not launch. Returns the kernels-line fields of
+    both, at the d=64 training shape (bf16, the sum pool), where the [d64]
+    phase counts their launches."""
     from score_tpu_torch.kernels.coattn import (cross_coattn_pair,
                                                 cross_coattn_pair_bwd,
                                                 cross_coattn_pair_bwd_plain,
@@ -910,19 +946,25 @@ def phase_coattn_wide(card: str, dev, gen) -> dict:
         training = kw["C"] == 2
         dtypes = ((torch.bfloat16, torch.float32) if label == "d64 training"
                   else (torch.bfloat16,))
-        pools = ("sum",) if label == "d128 training" else ("sum", "mean",
-                                                          "max")
+        # the backward at d=128 for the sum pool only (its mean is the
+        # same kernel with one scale)
+        bwd_pools = ("sum",) if label == "d128 training" else ("sum",
+                                                               "mean")
         for dtype in dtypes:
             tol = F32_TOL if dtype == torch.float32 else BF16_TOL
             args = _cand_inputs(gen, dev, dtype, **kw)
             B, C, d = kw["B"], kw["C"], kw["d"]
             grads = [torch.randn(B, C, T, d, generator=gen, device=dev)
                      .to(dtype) for _ in range(2)]
-            for pool in pools:
+            for pool in ("sum", "mean", "max"):
                 tag = f"[coattn_wide] {label} {kw} {pool} {str(dtype)[6:]}"
                 got = cross_coattn_pair(*args, pool=pool)
                 want = cross_coattn_pair_plain(*args, pool=pool)
+                again = cross_coattn_pair(*args, pool=pool)
                 torch.cuda.synchronize()
+                if not all(torch.equal(a, g) for a, g in zip(again, got)):
+                    raise AssertionError(f"{tag}: two runs of the forward "
+                                         f"differ")
                 err = 0.0
                 for g, w in zip(got, want):
                     if not torch.isfinite(g).all():
@@ -940,6 +982,7 @@ def phase_coattn_wide(card: str, dev, gen) -> dict:
                     *args, pool=pool), iters=5)
                 b = bound(*_pair_work(args, pool))
                 log(f"{tag} forward: max_abs_err {err:.3e} (tol {tol}), "
+                    f"two runs bit-equal, "
                     f"kernel {ms:.4f} ms ({gms:.4f} by graph), plain "
                     f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
                     f"({b['bound_by']}) [{card}]")
@@ -948,7 +991,7 @@ def phase_coattn_wide(card: str, dev, gen) -> dict:
                     line["fwd"] = dict(ms=ms, graph_ms=gms,
                                        plain_ms=plain_ms, library_ms=None,
                                        **b)
-                if pool == "max" or not training:
+                if pool not in bwd_pools or not training:
                     continue
                 got = cross_coattn_pair_bwd(*args, *grads, pool=pool)
                 want = cross_coattn_pair_bwd_plain(*args, *grads, pool=pool)
@@ -1819,6 +1862,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     phase_device(card)
+    mark("[device]")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     gather = phase_gather(card, dev, gen)
@@ -1828,7 +1872,9 @@ def main() -> int:
     scatter = phase_scatter(card, dev, gen, ds)
     coattn_bwd = phase_coattn_bwd(card, dev, gen)
     pair_bwd = phase_coattn_pair_bwd(card, dev, gen)
+    mark("the tuned kernels' phases and [data]")
     wide = phase_coattn_wide(card, dev, gen)
+    mark("[coattn_wide]")
     for pool in ("sum", "max", "mean"):
         phase_serving(card, ds, pool)
     launches = phase_training(card, ds, dev)              # sum pool
@@ -1836,6 +1882,7 @@ def main() -> int:
     phase_training(card, ds, dev, "max", steps=MAX_POOL_STEPS)
     check_pools_differ("[train]", {pool: phase_training_vs_cpu(ds, pool)
                                    for pool in ("sum", "mean", "max")})
+    mark("[serve] and [train]")
     launches_wide, losses = phase_wide_model(card, ds, dev, 64, "sum",
                                              profile=True)
     wide_losses = {"sum": losses}
@@ -1843,10 +1890,13 @@ def main() -> int:
         wide_losses[pool] = phase_wide_model(card, ds, dev, 64, pool)[1]
     check_pools_differ("[d64]", wide_losses)
     phase_wide_model(card, ds, dev, 128, "sum")
+    mark("[d64] and [d128]")
     phase_eval(card, ds, dev)
     with tempfile.TemporaryDirectory() as work:
         data_dir = phase_driver(card, ds, dev, work)
+        mark("[eval] and [driver]")
         phase_ladder(card, ds, dev, data_dir)
+    mark("[ladder]")
     kernels = [
         dict(name="gather_rows", route="cuda",
              source="score_tpu_torch/csrc/gather.cu",

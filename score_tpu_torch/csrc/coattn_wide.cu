@@ -23,24 +23,79 @@
 // and the backward's dEu (summed over c), dEi, deu and dei (summed over
 // t) and dWr = sum [dv (x) Es + Em (x) dw] (coattn_bwd.cuh's note).
 //
-// Bound on the H100: bytes for sum and mean (the valid rows read once,
-// the outputs written once; under 10 operations a byte); for the max pool
-// operations, 2*n*m*d f32 operations a unit for the relation matrix at
-// the card's 67 TFLOP/s on the CUDA cores, once n*m*d outgrows the bytes.
+// Bound on the H100: bytes, for every pool (the valid rows read once, the
+// outputs written once). The max pool's EuW and relation matrix, 2*n*d*d
+// a (b, t) and 2*n*m*d a unit, run on the tensor cores in two bf16 passes
+// at 989 TFLOP/s or three TF32 passes at 495, under the bytes' time at
+// every shape here; the rest is under 10 f32 operations a byte.
 //
-// The forward is the simple first form, right before fast:
-//   * one warp owns a work item, a (b, t) and a run of its candidates; a
-//     lane holds components lane, lane + 32, ... of every d-vector (at
-//     most 4), and rows j, j + 32 of every per-row value (n, m <= 64);
-//   * the rows of a (b, t) and of a unit are staged in f32 in the warp's
-//     shared memory (masked rows as zeros, never read), with an odd row
-//     stride so that lanes reading one column of 32 rows hit 32 banks;
-//     Wr is staged once a block and read as rows or columns;
-//   * dots over d are lane FMAs, one row a lane; the softmaxes are warp
-//     reductions; the max pool forms EuW = Eu Wr once a work item and its
-//     relation matrix in a per-warp shared buffer, a (j, k) pair a lane;
-//   * 16-byte row loads where the rows are a multiple of 16 bytes and the
-//     inputs 16-byte aligned; scalar loads otherwise (odd d, offset views).
+// The forward runs on the tensor cores. One product carries all three
+// pools: with EuW = Eu Wr, the relation matrix M = EuW Ei^T holds the sum
+// pool's scores as its row and column sums (EuW_j . Es = sum_k M_jk and
+// Ei_k . Em Wr = sum_j M_jk, masked rows being zeros; the mean divides by
+// the counts) and the max pool's as its row and column maxima (invalid
+// entries biased by -1e9, 0 where a side has no valid row); the target
+// terms are added after. f32 inputs take M for the max pool only: their
+// sum and mean scores are those dots themselves on the CUDA cores, si_k
+// = Ei_k . (Em Wr + eu) with Em Wr as EuW's column sums, formed once an
+// item into eu's staged row, and su_j = EuW_j . Es + Eu_j . ei at the
+// unit's end, Es summed over its tiles: (n + m) d f32 FMAs a unit in
+// place of M's 3 n m d TF32 products and their operand splits.
+//   * A warp owns a work item: a (b, t) and a run of at most 32 of its
+//     candidates, and at least two where C allows (units go
+//     candidate-fastest), on a persistent grid of the resident blocks,
+//     about 8 items a resident warp. It forms EuW once an item on mma.sync
+//     tiles, its user rows as A (16-row m-tiles, n <= 64) and Wr as B from
+//     fragments each block stages once: bf16 m16n8k16 with Eu exact and Wr
+//     split hi + lo; f32 m16n8k8 with both split into tf32 hi + lo
+//     (3xTF32). EuW lands in the warp's shared memory as the relation
+//     matrix's A fragments (bf16: split hi + lo; f32: as f32 values, split
+//     where used).
+//   * A unit's item rows come in tiles of 16 (two 8-row n-tiles; m > 16
+//     takes up to 4 tiles, the item softmax then running over them).
+//     Lane (g, q) holds rows g and g + 8 of a tile, components 32 r + 8 q
+//     .. + 7 of each 32-component chunk r (d <= 32 R, R = 1, 2 or 4): one
+//     16-byte shared load a row and chunk is the B operand as it stands,
+//     the d index permuted within the lane's 8 components as EuW's A
+//     fragments permute it. Rows past m or d are zeros. Row sums or
+//     maxima of M reduce within the quad (2 shuffles), column ones by a
+//     transposing fold across g (6 shuffles a tile for both slots).
+//   * bf16: the target terms (eu and ei exact) and both softmax-weighted
+//     sums run on the tensor cores too, the weights split hi + lo and the
+//     rows transposed by movmatrix (coattn_cand.cuh's max pool does the
+//     same at d <= 32). f32: on the CUDA cores, the lane's rows summed
+//     and then folded across g.
+//   * Rows reach shared memory by cp.async through a ring of two stages,
+//     the next tile in flight while the warp works on the current one;
+//     masked rows are zero-filled and never read; the user rows once an
+//     item, in the input dtype. The 16-byte path needs rows of a multiple
+//     of 16 bytes and aligned inputs; odd d and offset views, which have
+//     no speed target, take one scalar instance of the same kernel (R = 4,
+//     four m-tiles) for each dtype and pool kind.
+// Against the first form's limits: its idle lanes and serial per-row dots
+// are mma tiles in which every lane takes part; its shared-memory operand
+// traffic for the d x d products is gone (EuW and M on the tensor cores,
+// operands as 16-byte fragment loads); its unoverlapped staging is a
+// cp.async ring; and at d = 64 bf16 an SM holds 16 warps (128 registers,
+// 12 KB of shared memory each), where time tracks resident warps.
+// Shared memory: the block's Wr fragments, 4 KB R^2, and a warp's EuW
+// fragments (2 KB a 16-row m-tile and chunk: bf16 hi and lo, f32
+// values), its user rows and eu, a ring of two 17-row stages (pitch
+// 32 R + 4 f32 or 32 R (+ 32 at even R) bf16 elements) and min(C, 32) m
+// mask bytes.
+// Split error: a bf16 hi + lo split leaves |x - hi - lo| <= 2^-16 |x|, so
+// M is within 2^-15 sum_l (|EuW_jl Ei_kl| + sum_e |Eu_je Wr_el Ei_kl|) of
+// its exact value; 3xTF32 within 2^-20 of the same sums (before the f32
+// sums' own rounding), and f32 EuW within 2^-20 sum_e |Eu_je Wr_el|, which
+// the f32 sum and mean carry into their dots; tests/test_torch_wide.py
+// checks both at d = 128, n = m = 64.
+// ptxas (sm_90a, chip_smoke.py's [device] phase prints them): registers a
+// thread (+ spill-store bytes) of each 16-byte instance, for R = 1, 2, 4,
+// each at kMT = 1 and 4, then the scalar instance:
+//   bf16 sum, mean  84, 127; 128+6, 166; 143, 168+62; scalar 168+238
+//   bf16 max        98, 125; 127, 166; 141, 168+34; scalar 168+90
+//   f32 sum, mean   104, 124; 168+12, 162; 186, 215; scalar 241
+//   f32 max         100, 123; 136, 154; 168+26, 163; scalar 168
 //
 // The backward is laid out for the card (its predecessor, a warp an
 // example over all T x C units with dWr through 2 x B*T*(C+1) x d f32
@@ -82,8 +137,9 @@
 // the block's items would take off it.
 
 #include <initializer_list>
+#include <type_traits>
 
-#include "coattn_common.cuh"
+#include "coattn_cand.cuh"
 
 namespace {
 
@@ -91,256 +147,937 @@ enum WidePool { kWSum = 0, kWMean = 1, kWMax = 2 };
 
 constexpr int kWideMaxD = 128;
 constexpr int kWideMaxRows = 64;
-constexpr int kWideMaxWarps = 4;
 constexpr int kSmemLimit = 232448;          // bytes a block may use, sm_90
-constexpr int kFwdItemsWanted = 8192;       // work items the forward aims at
+constexpr int kFwdItemsPerWarp = 8;         // work items a resident warp
 
-// Odd row stride of the [rows][d] f32 tiles in shared memory.
-__host__ __device__ inline int row_stride(int d) { return d | 1; }
+// --- the forward -----------------------------------------------------------
 
-// Floats of shared memory a forward warp uses.
-__host__ __device__ inline int fwd_warp_floats(int n, int m, int d,
-                                               bool max_pool) {
-  const int ld = row_stride(d);
-  return (n + m) * ld + (max_pool ? n * ld + n * m : 0) + 3 * d +
-         2 * kWideMaxRows;
+// Warps a forward block at most, as registers allow: bf16 16 at R = 1, and
+// at R = 2 with one user m-tile (128 registers a thread), else 12 (168);
+// f32, whose 3xTF32 products need more registers, 12, and 6 at R = 4.
+// Shared memory may hold fewer.
+template <typename T>
+__host__ __device__ constexpr int fwd_max_warps(int R, int kMT) {
+  return sizeof(T) == 2 ? (R == 1 || (R == 2 && kMT == 1) ? 16 : 12)
+                        : (R == 4 ? 6 : 12);
 }
 
-// dst[j * ld + e] = src[j * d + e] in f32 for the valid rows j < rows,
-// zeros for the masked ones, which are not read. kVec: 16-byte loads
-// (d * sizeof(T) % 16 == 0 and src 16-byte aligned).
-template <typename T, bool kVec>
-__device__ __forceinline__ void stage_rows(float* __restrict__ dst, int ld,
-                                           const T* __restrict__ src,
-                                           const uint8_t* __restrict__ mask,
-                                           int rows, int d, int lane) {
-  if constexpr (kVec) {
-    constexpr int kPer = 16 / sizeof(T);
-    const int vpr = d / kPer;
-    for (int i = lane; i < rows * vpr; i += 32) {
-      const int j = i / vpr;
-      const int q = i - j * vpr;
-      float* out = dst + j * ld + q * kPer;
-      if (mask[j]) {
-        const uint4 raw =
-            __ldg(reinterpret_cast<const uint4*>(src + (long long)j * d) + q);
-        const T* x = reinterpret_cast<const T*>(&raw);
+// k-steps of a tensor-core product a 32-component chunk: bf16 m16n8k16 2,
+// tf32 m16n8k8 4.
+template <typename T> constexpr int kKPC = 4;
+template <> constexpr int kKPC<__nv_bfloat16> = 2;
+
+// Row pitch of the staged user rows, in elements of T: 32 R components,
+// padded so that a quarter warp's 16-byte reads of rows g and g + 1 (bf16:
+// one read a lane; f32: two) fall on distinct banks.
+template <typename T, int R>
+__host__ __device__ constexpr int fwd_pitch() {
+  return sizeof(T) == 2 ? 32 * R + (R % 2 == 0 ? 32 : 0) : 32 * R + 4;
+}
+
+constexpr int kMaxChunk = 32;    // candidates a work item
+constexpr int kStages = 2;       // ring stages: one tile in flight ahead
+
+// Rows of a ring stage: a tile's item rows (16, or m where m < 16) and
+// the unit's ei.
+__host__ __device__ inline int stage_rows(int m) {
+  return (m < 16 ? m : 16) + 1;
+}
+
+// Bytes of shared memory: the block's Wr fragments, and a warp's buffers
+// for MT user m-tiles, S ring stages, m item rows a unit and C candidates
+// (EuW's A fragments, hi and lo; the user rows and eu; the ring; the
+// item-mask bytes of a run, at most kMaxChunk units).
+template <int R>
+__host__ __device__ constexpr int fwd_wr_bytes() { return 4096 * R * R; }
+template <typename T, int R>
+__host__ __device__ inline int fwd_warp_bytes(int MT, int S, int m, int C) {
+  return (sizeof(T) == 2 ? 2 : 1) * MT * R * kKPC<T> * 32 * 16 +
+         (16 * MT + 1 + S * stage_rows(m)) * fwd_pitch<T, R>() *
+             (int)sizeof(T) +
+         ((C < kMaxChunk ? C : kMaxChunk) * m + 15) / 16 * 16;
+}
+
+// The low (first) and high (second) element of a bf16x2 word, in f32.
+__device__ __forceinline__ float bf16_first(unsigned w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_second(unsigned w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+// The bf16 lo parts of a pair whose hi parts are the word `hi`.
+__device__ __forceinline__ unsigned bf16x2_lo(float a, float b, unsigned hi) {
+  return bf16x2(a - bf16_first(hi), b - bf16_second(hi));
+}
+
+template <typename T, int R>
+__device__ __forceinline__ float dot_chunks(const Raw<T> (&x)[R],
+                                            const Raw<T> (&y)[R]) {
+  float s = 0.f;
 #pragma unroll
-        for (int k = 0; k < kPer; ++k) out[k] = to_f32(x[k]);
-      } else {
+  for (int r = 0; r < R; ++r) {
+    float a[kComp], b[kComp];
+    unpack(x[r], a);
+    unpack(y[r], b);
+    s = dot8(a, b, s);
+  }
+  return s;
+}
+
+// Sum over the 8 lanes of each q (lanes q, q + 4, ..., q + 28).
+__device__ __forceinline__ float g_sum(float x) {
+  x += __shfl_xor_sync(kFull, x, 4);
+  x += __shfl_xor_sync(kFull, x, 8);
+  return x + __shfl_xor_sync(kFull, x, 16);
+}
+__device__ __forceinline__ float g_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(kFull, x, 4));
+  x = fmaxf(x, __shfl_xor_sync(kFull, x, 8));
+  return fmaxf(x, __shfl_xor_sync(kFull, x, 16));
+}
+
+// Wr as the B operand of EuW = Eu Wr, in fragment order [n-tile nt < 4 R]
+// [k-step][lane (g, q)], column 8 nt + g, rows of the lane's k-step as the
+// relation matrix's A and B permute them (see wide_fwd_kernel): bf16, one
+// uint4 {hi b0, hi b1, lo b0, lo b1} of k-step (r, s)'s rows 32 r + 8 q +
+// 4 s + 0..3; f32, one float2 {b0, b1} of rows 32 r + 8 q + 2 s + {0, 1}
+// (split into tf32 hi + lo where used). Zeros past d. Both 4096 R^2 bytes.
+template <typename T, int R>
+__device__ __forceinline__ void stage_wr_frags(void* dst,
+                                               const float* __restrict__ Wr,
+                                               int d) {
+  constexpr int KS = R * kKPC<T>, kTotal = 4 * R * KS * 32, kB = 4;
+  auto wr = [&](int k, int e) {
+    return k < d && e < d ? __ldg(Wr + k * d + e) : 0.f;
+  };
+  // kB entries a thread at a time, all their loads issued first
+  for (int i0 = threadIdx.x; i0 < kTotal; i0 += kB * blockDim.x) {
+    float x[kB][4];
 #pragma unroll
-        for (int k = 0; k < kPer; ++k) out[k] = 0.f;
+    for (int u = 0; u < kB; ++u) {
+      const int i = i0 + u * blockDim.x;
+      const int lane = i & 31, ks = (i >> 5) % KS, nt = (i >> 5) / KS;
+      const int e = 8 * nt + (lane >> 2), q = lane & 3;
+      const int k0 = sizeof(T) == 2 ? 32 * (ks >> 1) + 8 * q + 4 * (ks & 1)
+                                    : 32 * (ks >> 2) + 8 * q + 2 * (ks & 3);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        x[u][c] = i < kTotal && (sizeof(T) == 2 || c < 2) ? wr(k0 + c, e)
+                                                          : 0.f;
       }
     }
-  } else {
-    for (int i = lane; i < rows * d; i += 32) {
-      const int j = i / d;
-      const int e = i - j * d;
-      dst[j * ld + e] = mask[j] ? to_f32(src[(long long)j * d + e]) : 0.f;
+#pragma unroll
+    for (int u = 0; u < kB; ++u) {
+      const int i = i0 + u * blockDim.x;
+      if (i >= kTotal) break;
+      if constexpr (sizeof(T) == 2) {
+        const unsigned h0 = bf16x2(x[u][0], x[u][1]);
+        const unsigned h1 = bf16x2(x[u][2], x[u][3]);
+        reinterpret_cast<uint4*>(dst)[i] =
+            make_uint4(h0, h1, bf16x2_lo(x[u][0], x[u][1], h0),
+                       bf16x2_lo(x[u][2], x[u][3], h1));
+      } else {
+        reinterpret_cast<float2*>(dst)[i] = make_float2(x[u][0], x[u][1]);
+      }
     }
   }
 }
 
-// Valid rows of a mask of `rows` <= 64 bytes.
-__device__ __forceinline__ int count_valid(const uint8_t* __restrict__ mask,
-                                           int rows, int lane) {
-  int c = __popc(__ballot_sync(kFull, lane < rows && mask[lane]));
-  if (rows > 32) {
-    c += __popc(__ballot_sync(kFull, lane + 32 < rows && mask[lane + 32]));
+// 16 bytes from global to shared memory, asynchronously; `bytes` < 16
+// zero-fills the rest (0: the source is not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// Wait until at most N of the thread's copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Components l0 .. l0 + 7 of a row into shared memory at dst (zeros past d;
+// all zeros where !ok, and the row is then not read): by cp.async where
+// `vec`, else by plain loads and a store.
+template <typename T>
+__device__ __forceinline__ void copy_chunk(T* dst, const T* row, int l0,
+                                           int d, bool ok, bool vec) {
+  if (vec) {
+    cp_async16(dst, row + l0, ok && l0 < d ? 16 : 0);
+    if constexpr (sizeof(T) == 4) {
+      cp_async16(dst + 4, row + l0 + 4, ok && l0 + 4 < d ? 16 : 0);
+    }
+  } else {
+    Raw<T> r;
+    load_raw<false>(row, l0, d, ok, r);
+    sts_conv(dst, r);
   }
-  return c;
 }
 
-// x . y over d components, both in shared memory.
-__device__ __forceinline__ float sdot(const float* __restrict__ x,
-                                      const float* __restrict__ y, int d) {
-  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-  int e = 0;
-  for (; e + 4 <= d; e += 4) {
-    s0 += x[e] * y[e];
-    s1 += x[e + 1] * y[e + 1];
-    s2 += x[e + 2] * y[e + 2];
-    s3 += x[e + 3] * y[e + 3];
+// EuW = Eu Wr for the staged user rows, on the tensor cores, into the
+// relation matrix's A fragments [m-tile][k-step][lane] (uint4 each). bf16:
+// Eu is exact, Wr hi + lo, 2 products; each D pair (row j, components e,
+// e + 1) is one word, split into hi (sAh) and lo (sAl). f32: Eu and Wr
+// split into tf32 hi + lo, 3 products (hi hi, hi lo, lo hi); each D value
+// is one word of sAh as it is (relation2 splits it where used).
+template <typename T, int R>
+__device__ __forceinline__ void euw_frags(const T* __restrict__ sEu,
+                                          const void* __restrict__ sWrF,
+                                          uint4* sAh, uint4* sAl, int MT,
+                                          int lane) {
+  // n-tiles of EuW's columns in groups of NW (the accumulators of 4 R
+  // n-tiles at R = 4 would spill)
+  constexpr int P = fwd_pitch<T, R>(), KS = R * kKPC<T>;
+  constexpr int NW = R < 2 ? 4 * R : 8;
+  const int g = lane >> 2, q = lane & 3;
+  unsigned* ah = reinterpret_cast<unsigned*>(sAh);
+  unsigned* al = reinterpret_cast<unsigned*>(sAl);
+  for (int mg = 0; mg < MT * (4 * R / NW); ++mg) {
+    const int mt = mg / (4 * R / NW), nt0 = (mg % (4 * R / NW)) * NW;
+    float acc[NW][4];
+#pragma unroll
+    for (int nt = 0; nt < NW; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+    }
+    const T* r0 = sEu + (16 * mt + g) * P + 8 * q;
+    const T* r1 = r0 + 8 * P;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      Raw<T> x0, x1;
+      lds_raw(r0 + 32 * r, x0);
+      lds_raw(r1 + 32 * r, x1);
+      if constexpr (sizeof(T) == 2) {
+        const uint4 u0 = x0.v, u1 = x1.v;
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          const unsigned a0 = s ? u0.z : u0.x, a1 = s ? u1.z : u1.x;
+          const unsigned a2 = s ? u0.w : u0.y, a3 = s ? u1.w : u1.y;
+          const uint4* b = reinterpret_cast<const uint4*>(sWrF) +
+                           (nt0 * KS + 2 * r + s) * 32 + lane;
+#pragma unroll
+          for (int nt = 0; nt < NW; ++nt) {
+            const uint4 w = b[nt * KS * 32];
+            mma_bf16(acc[nt], a0, a1, a2, a3, w.x, w.y);
+            mma_bf16(acc[nt], a0, a1, a2, a3, w.z, w.w);
+          }
+        }
+      } else {
+        float f0[kComp], f1[kComp];
+        unpack(x0, f0);
+        unpack(x1, f1);
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const float av[4] = {f0[2 * s], f1[2 * s], f0[2 * s + 1],
+                               f1[2 * s + 1]};
+          unsigned ahi[4], alo[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            ahi[i] = to_tf32(av[i]);
+            alo[i] = to_tf32(av[i] - __uint_as_float(ahi[i]));
+          }
+          const float2* b = reinterpret_cast<const float2*>(sWrF) +
+                            (nt0 * KS + 4 * r + s) * 32 + lane;
+#pragma unroll
+          for (int nt = 0; nt < NW; ++nt) {
+            const float2 w = b[nt * KS * 32];
+            const unsigned bh0 = to_tf32(w.x), bh1 = to_tf32(w.y);
+            const unsigned bl0 = to_tf32(w.x - __uint_as_float(bh0));
+            const unsigned bl1 = to_tf32(w.y - __uint_as_float(bh1));
+            mma_tf32(acc[nt], ahi[0], ahi[1], ahi[2], ahi[3], bh0, bh1);
+            mma_tf32(acc[nt], ahi[0], ahi[1], ahi[2], ahi[3], bl0, bl1);
+            mma_tf32(acc[nt], alo[0], alo[1], alo[2], alo[3], bh0, bh1);
+          }
+        }
+      }
+    }
+    // D of n-tile nt: rows 16 mt + g (+ 8), columns e = 8 nt + 2 q (+ 1),
+    // which lane (g, nt % 4) of k-step (nt / 4, q / 2) (bf16) or
+    // (nt / 4, q) (tf32) holds
+#pragma unroll
+    for (int nw = 0; nw < NW; ++nw) {
+      const int nt = nt0 + nw;
+      const int l2 = 4 * g + (nt & 3);
+      if constexpr (sizeof(T) == 2) {
+        const int ks = 2 * (nt >> 2) + (q >> 1);
+        const int f = ((mt * KS + ks) * 32 + l2) * 4 + 2 * (q & 1);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const unsigned hi = bf16x2(acc[nw][2 * h], acc[nw][2 * h + 1]);
+          ah[f + h] = hi;
+          al[f + h] = bf16x2_lo(acc[nw][2 * h], acc[nw][2 * h + 1], hi);
+        }
+      } else {
+        const int ks = 4 * (nt >> 2) + q;
+        const int f = ((mt * KS + ks) * 32 + l2) * 4;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {   // (row h, column + b): word 2b + h
+          ah[f + 2 * (i & 1) + (i >> 1)] = __float_as_uint(acc[nw][i]);
+        }
+      }
+    }
   }
-  for (; e < d; ++e) s0 += x[e] * y[e];
-  return (s0 + s1) + (s2 + s3);
 }
 
-// Masked softmax over up to 64 rows, lane l holding rows l and l + 32:
-// invalid rows weigh 0, and no valid row gives all zeros.
-__device__ __forceinline__ void softmax2(float* s, const bool* valid) {
-  const float mx = warp_max(fmaxf(valid[0] ? s[0] : kNeg,
-                                  valid[1] ? s[1] : kNeg));
-  const float e0 = valid[0] ? expf(s[0] - mx) : 0.f;
-  const float e1 = valid[1] ? expf(s[1] - mx) : 0.f;
-  const float den = fmaxf(warp_sum(e0 + e1), 1e-20f);
-  s[0] = e0 / den;
-  s[1] = e1 / den;
+// acc_h += EuW_hi x the item rows' chunk, acc_l += EuW_lo x it (two
+// accumulators, so that the two chains of products run side by side):
+// bf16 items are exact (EuW staged as hi and lo fragments); f32 items and
+// EuW (staged as its f32 values) are split into tf32 hi + lo, and acc_h
+// takes hi * hi + hi * lo, acc_l lo * hi (3xTF32).
+__device__ __forceinline__ void relation2(float acc_h[4], float acc_l[4],
+                                          const uint4* fh, const uint4* fl,
+                                          const Raw<__nv_bfloat16>& b) {
+  mma_tile(acc_h, fh, b.v);
+  mma_tile(acc_l, fl, b.v);
 }
-
-// Wr [d, d] into shared memory at row stride ld, by the whole block.
-__device__ __forceinline__ void stage_wr(float* __restrict__ sWr,
-                                         const float* __restrict__ Wr, int d,
-                                         int ld) {
-  for (int i = threadIdx.x; i < d * d; i += blockDim.x) {
-    const int k = i / d;
-    sWr[k * ld + (i - k * d)] = Wr[i];
+__device__ __forceinline__ void relation2(float acc_h[4], float acc_l[4],
+                                          const uint4* fa, const uint4*,
+                                          const Raw<float>& b) {
+  float x[kComp];
+  unpack(b, x);
+  unsigned h[kComp], l[kComp];
+#pragma unroll
+  for (int i = 0; i < kComp; ++i) {
+    h[i] = to_tf32(x[i]);
+    l[i] = to_tf32(x[i] - __uint_as_float(h[i]));
   }
-  __syncthreads();
+  // f32 EuW is staged once, as its values: split here into tf32 hi + lo
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const uint4 a = fa[32 * s];
+    const float av[4] = {__uint_as_float(a.x), __uint_as_float(a.y),
+                         __uint_as_float(a.z), __uint_as_float(a.w)};
+    unsigned ah[4], al[4];
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      ah[w] = to_tf32(av[w]);
+      al[w] = to_tf32(av[w] - __uint_as_float(ah[w]));
+    }
+    mma_tf32(acc_h, ah[0], ah[1], ah[2], ah[3], h[2 * s], h[2 * s + 1]);
+    mma_tf32(acc_h, ah[0], ah[1], ah[2], ah[3], l[2 * s], l[2 * s + 1]);
+    mma_tf32(acc_l, al[0], al[1], al[2], al[3], h[2 * s], h[2 * s + 1]);
+  }
 }
 
-template <typename T, int kPool, bool kVec>
-__global__ void __launch_bounds__(kWideMaxWarps * 32)
+// acc += the 16 rows of A, each the same bf16 vector v (one chunk of the
+// lane's 8 components), times B = the chunk of the rows in b: acc[0],
+// acc[1] = v . row 2q, v . row 2q + 1 (exact products, f32 sums).
+__device__ __forceinline__ void vec_rows(float acc[4], const uint4& v,
+                                         const uint4& b) {
+  mma_bf16(acc, v.x, v.x, v.y, v.y, b.x, b.y);
+  mma_bf16(acc, v.z, v.z, v.w, v.w, b.z, b.w);
+}
+
+// acc += A = rows r0 (g) and r1 (g + 8), one bf16 chunk each, times B =
+// the same vector v in every column: acc[0] = r0 . v, acc[2] = r1 . v.
+__device__ __forceinline__ void rows_vec(float acc[4], const uint4& r0,
+                                         const uint4& r1, const uint4& v) {
+  mma_bf16(acc, r0.x, r1.x, r0.y, r1.y, v.x, v.y);
+  mma_bf16(acc, r0.z, r1.z, r0.w, r1.w, v.z, v.w);
+}
+
+// The A operand of a softmax-weighted sum of 16 rows (slot i's row 8 i +
+// g weighs e[i], replicated over q), as weighted_mma forms it: rows 0-7
+// the weights' bf16 hi parts, rows 8-15 their lo parts.
+__device__ __forceinline__ void weights_a(const float e[2], int lane,
+                                          unsigned a[4]) {
+  const int q = lane & 3;
+  const float w0 = __shfl_sync(kFull, e[0], 8 * q);
+  const float w1 = __shfl_sync(kFull, e[0], 8 * q + 4);
+  const float w2 = __shfl_sync(kFull, e[1], 8 * q);
+  const float w3 = __shfl_sync(kFull, e[1], 8 * q + 4);
+  a[0] = bf16x2(w0, w1);
+  a[1] = bf16x2_lo(w0, w1, a[0]);
+  a[2] = bf16x2(w2, w3);
+  a[3] = bf16x2_lo(w2, w3, a[2]);
+}
+
+// y += the 16 rows (slot i: x_i, the lane's bf16 chunk of row 8 i + g)
+// weighted by A = weights_a's, on the tensor cores (weighted_mma's
+// product): components [8 q, 8 q + 8) of the chunk, in every lane.
+__device__ __forceinline__ void weighted_rows(const unsigned a[4],
+                                              const uint4& x0,
+                                              const uint4& x1,
+                                              float y[kComp]) {
+  const unsigned u0[4] = {x0.x, x0.y, x0.z, x0.w};
+  const unsigned u1[4] = {x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+  for (int v = 0; v < 4; ++v) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    mma_bf16(acc, a[0], a[1], a[2], a[3], movmatrix_t(u0[v]),
+             movmatrix_t(u1[v]));
+    y[2 * v] += acc[0] + acc[2];   // hi rows + lo rows
+    y[2 * v + 1] += acc[1] + acc[3];
+  }
+}
+
+// Where a work item lies: its (b, t), its first candidate and how many.
+struct FwdItem {
+  long long b, bt;
+  int t, c0, nc;
+};
+
+// A warp owns a work item, a (b, t) and a run of at most kMaxChunk of its
+// candidates, and takes the run's units one after another, an item tile
+// of 16 rows at a time (two mma n-tiles, slots i = 0, 1: rows 16 tt + 8 i
+// + g), the tiles of the run streaming through a ring of S = kStages
+// stages in shared memory by cp.async, the next in flight while the warp
+// works on one (a stage holds min(m, 16) rows; the rest of the tile reads
+// as zeros). MT = the user m-tiles (n <= 16 MT <= 16 kMT). kVec: 16-byte
+// loads and stores. `c2` is 1/sqrt(d) * log2(e): scores in log2 units.
+template <typename T, bool kMaxPool, int R, int kMT, bool kVec>
+__global__ void __launch_bounds__(fwd_max_warps<T>(R, kMT) * 32)
 wide_fwd_kernel(const T* __restrict__ Eu, const T* __restrict__ Ei,
                 const uint8_t* __restrict__ mu,
                 const uint8_t* __restrict__ mi, const float* __restrict__ Wr,
                 const T* __restrict__ eu, const T* __restrict__ ei,
                 T* __restrict__ cu, T* __restrict__ ci, int C, int Tn, int n,
-                int m, int d, int target_aware, float scale, int chunk,
-                int chunks, long long items) {
-  constexpr bool kMaxPool = kPool == kWMax;
-  extern __shared__ __align__(16) float smem[];
-  const int ld = row_stride(d);
-  const int warps = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float* sWr = smem;                                  // Wr[k][e] at k*ld+e
-  float* sEu = sWr + d * ld + warp * fwd_warp_floats(n, m, d, kMaxPool);
-  float* sEi = sEu + n * ld;
-  float* sEuW = sEi + m * ld;                         // max pool only
-  float* sM = sEuW + (kMaxPool ? n * ld : 0);         // [n][m], max only
-  float* sW = sM + (kMaxPool ? n * m : 0);    // w (sum, mean); eu (max)
-  float* sV = sW + d;                         // v (sum, mean); ei (max)
-  float* sVec = sV + d;                       // Em, then Es
-  float* sA = sVec + d;
-  float* sB = sA + kWideMaxRows;
-  stage_wr(sWr, Wr, d, ld);
+                int m, int d, int target_aware, int mean, float c2,
+                int chunk, int chunks, long long items) {
+  constexpr bool kBF16 = sizeof(T) == 2;
+  constexpr int P = fwd_pitch<T, R>(), KPC = kKPC<T>, KS = R * KPC;
+  constexpr float kInit = kMaxPool ? kNeg : 0.f;
+  // f32 sum and mean: no relation matrix; the scores are dots on the CUDA
+  // cores, si_k = Ei_k . (Em Wr + eu) and su_j = EuW_j . Es + Eu_j . ei
+  constexpr bool kDot = !kBF16 && !kMaxPool;
+  extern __shared__ uint4 fwd_smem[];
+  const int MT = (n + 15) >> 4;
+  constexpr int S = kStages;
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  constexpr bool v16 = kVec;   // 16-byte loads and stores
+  const void* sWrF = fwd_smem;
+  // the warp's buffers: EuW's A fragments (hi, lo), the user rows and eu
+  // (row 16 MT), the ring of item tiles (kr rows, and with a unit's last
+  // tile its ei as row kr), the run's item-mask bytes
+  uint4* sAh = reinterpret_cast<uint4*>(
+      reinterpret_cast<unsigned char*>(fwd_smem) + fwd_wr_bytes<R>() +
+      warp * fwd_warp_bytes<T, R>(MT, S, m, C));
+  uint4* sAl = sAh + (kBF16 ? MT * KS * 32 : 0);   // f32: unused
+  T* sEu = reinterpret_cast<T*>(sAl + MT * KS * 32);
+  T* ring = sEu + (16 * MT + 1) * P;
+  const int kr = min(m, 16), stage = (kr + 1) * P;   // a stage's rows, size
+  uint8_t* sMk = reinterpret_cast<uint8_t*>(ring + S * stage);
+  stage_wr_frags<T, R>(fwd_smem, Wr, d);
+  __syncthreads();
+  // item tiles a unit: one in the kMT = 1 instances (n, m <= 16), whose
+  // item softmax then needs no running max
+  constexpr bool kOne = kMT == 1;
+  const int nti = kOne ? 1 : (m + 15) >> 4;
 
-  for (long long item = (long long)blockIdx.x * warps + warp; item < items;
-       item += (long long)gridDim.x * warps) {
-    const long long bt = item / chunks;
-    const int c0 = (int)(item - bt * chunks) * chunk;
-    const int c1 = min(C, c0 + chunk);
-    const long long b = bt / Tn;
-    const int t = (int)(bt - b * Tn);
-    const uint8_t* mu_bt = mu + bt * n;
+  auto place = [&](long long it) {
+    FwdItem p;
+    p.bt = it / chunks;
+    p.c0 = (int)(it - p.bt * chunks) * chunk;
+    p.nc = min(C, p.c0 + chunk) - p.c0;
+    p.b = p.bt / Tn;
+    p.t = (int)(p.bt - p.b * Tn);
+    return p;
+  };
+  // the item's mask bytes: user rows lane and lane + 32; item rows of its
+  // units (unit u's row k at byte u m + k) lane and lane + 32, where they
+  // fit two a lane (pre), loaded while the warp works on the item before
+  uint8_t pmu[2] = {0, 0}, pmi[2] = {0, 0};
+  bool pre = false;
+  auto load_masks = [&](const FwdItem& p) {
+    pre = p.nc * m <= 64;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = lane + 32 * h;
+      pmu[h] = j < n ? mu[p.bt * n + j] : 0;
+      const int u = j / m;
+      pmi[h] = pre && j < p.nc * m
+                   ? mi[((p.b * C + p.c0 + u) * Tn + p.t) * m + j - u * m]
+                   : 0;
+    }
+  };
+  const long long stride = (long long)gridDim.x * warps;
+  long long item = (long long)blockIdx.x * warps + warp;
+  if (item < items) load_masks(place(item));
+
+  for (; item < items; item += stride) {
+    const FwdItem p = place(item);
+    const long long b = p.b;
+    const int c0 = p.c0, nc = p.nc;
+    // unit u's place: bc = b * C + c0 + u, bct = bc * Tn + t; its item
+    // rows, ei and outputs from the item's first unit's, in strides
+    const long long bct0 = (b * C + c0) * Tn + p.t;
+    auto unit_bct = [&](int u) { return bct0 + (long long)u * Tn; };
+    const T* Ei_it = Ei + bct0 * m * d;
+    const T* ei_it = ei + (b * C + c0) * d;
+    const int ustride = Tn * m * d;
+
     __syncwarp();   // the last item's reads of the warp's buffers are done
-    stage_rows<T, kVec>(sEu, ld, Eu + bt * n * d, mu_bt, n, d, lane);
-    const int cnt_u = count_valid(mu_bt, n, lane);
-    __syncwarp();
-    if constexpr (!kMaxPool) {
-      const float inv_u =
-          kPool == kWMean ? 1.f / fmaxf((float)cnt_u, 1.f) : 1.f;
-      for (int e = lane; e < d; e += 32) {
-        float s = 0.f;
-        for (int j = 0; j < n; ++j) s += sEu[j * ld + e];
-        sVec[e] = s * inv_u;
-      }
-      __syncwarp();
-      for (int e = lane; e < d; e += 32) {
-        float s = 0.f;
-        for (int k = 0; k < d; ++k) s += sVec[k] * sWr[k * ld + e];
-        sW[e] = target_aware ? s + to_f32(eu[b * d + e]) : s;
+    const unsigned long long ubits =
+        (unsigned long long)__ballot_sync(kFull, pmu[0] != 0) |
+        (unsigned long long)__ballot_sync(kFull, pmu[1] != 0) << 32;
+    if (pre) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (lane + 32 * h < nc * m) sMk[lane + 32 * h] = pmi[h];
       }
     } else {
-      for (int e = lane; e < d; e += 32) {
-        for (int j = 0; j < n; ++j) {
-          float s = 0.f;
-          for (int k = 0; k < d; ++k) s += sEu[j * ld + k] * sWr[k * ld + e];
-          sEuW[j * ld + e] = s;
-        }
-        sW[e] = target_aware ? to_f32(eu[b * d + e]) : 0.f;
+      for (int i = lane; i < nc * m; i += 32) {
+        const int u = i / m;
+        sMk[i] = mi[unit_bct(u) * m + i - u * m];
       }
     }
-    bool vu[2];
+    // the user rows (masked ones and rows n .. 16 MT - 1 zeros) and eu
+    {
+      const T* Eu_bt = Eu + p.bt * n * d;
+      const int total = (16 * MT + 1) * 4 * R;
+      for (int i = lane; i < total; i += 32) {
+        const int j = i / (4 * R), c = i - j * 4 * R;
+        const bool user = j < 16 * MT;
+        const bool ok = user ? j < n && ((ubits >> j) & 1ull)
+                             : target_aware != 0;
+        copy_chunk(sEu + j * P + 8 * c, user ? Eu_bt + (long long)j * d
+                                             : eu + b * d,
+                   8 * c, d, ok, v16);
+      }
+    }
+    cp_commit();
+    __syncwarp();   // sMk
+    // the next tile to issue: unit iu, tile itt, ring stage ist
+    int iu = 0, itt = 0, ist = 0;
+    auto issue_next = [&]() {
+      if (iu < nc) {
+        T* dst = ring + ist * stage;
+        const T* rows = Ei_it + (long long)iu * ustride;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int j = lane + 32 * r;
-      vu[r] = j < n && mu_bt[j];
+        for (int i = 0; i < 2; ++i) {
+          if (8 * i + g >= kr) break;
+          const int k = 16 * itt + 8 * i + g;
+          const bool ok = k < m && sMk[iu * m + k] != 0;
+          const T* row = rows + k * d;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            copy_chunk(dst + (8 * i + g) * P + 32 * r + 8 * q, row,
+                       32 * r + 8 * q, d, ok, v16);
+          }
+        }
+        if (itt == nti - 1 && g == 0) {   // lanes (0, q): the unit's ei
+          const T* row = ei_it + iu * d;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            copy_chunk(dst + kr * P + 32 * r + 8 * q, row, 32 * r + 8 * q,
+                       d, target_aware != 0, v16);
+          }
+        }
+      }
+      cp_commit();
+      ist = ist + 1 == S ? 0 : ist + 1;
+      if (++itt == nti) {
+        itt = 0;
+        ++iu;
+      }
+    };
+    issue_next();
+    if (item + stride < items) load_masks(place(item + stride));
+    cp_async_wait<1>();   // the user rows
+    __syncwarp();
+    euw_frags<T, R>(sEu, sWrF, sAh, sAl, MT, lane);
+    __syncwarp();
+    const float inv_u =
+        mean ? 1.f / fmaxf((float)__popcll(ubits), 1.f) : 1.f;
+    const T* sev = sEu + 16 * MT * P + 8 * q;   // the lane's chunks of eu
+    if constexpr (kDot) {   // eu's row becomes Em Wr (/ the count) + eu:
+      // EuW's column sums (its masked rows are zeros), folded across g
+      float w[R][kComp];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+#pragma unroll
+        for (int c = 0; c < kComp; ++c) w[r][c] = 0.f;
+      }
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        if (mt >= MT) break;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {   // words: (row, component) (g,
+            const uint4 a = sAh[(mt * KS + r * KPC + s) * 32 + lane];
+            w[r][2 * s] += __uint_as_float(a.x) + __uint_as_float(a.y);
+            w[r][2 * s + 1] += __uint_as_float(a.z) + __uint_as_float(a.w);
+          }   // 2 s), (g + 8, 2 s), (g, 2 s + 1), (g + 8, 2 s + 1)
+        }
+      }
+      T* ev = sEu + 16 * MT * P;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        fold<4>(w[r], lane, 16);
+        fold<2>(w[r], lane, 8);
+        fold<1>(w[r], lane, 4);
+        const int l = 32 * r + 8 * q + g;   // the component lane (g, q) holds
+        ev[l] = from_f32<T>(fmaf(w[r][0], inv_u, to_f32(ev[l])));
+      }
+      __syncwarp();
     }
 
-    for (int c = c0; c < c1; ++c) {
-      const long long bc = b * C + c;
-      const long long bct = bc * Tn + t;
-      const uint8_t* mi_u = mi + bct * m;
-      __syncwarp();   // the last unit's reads of sEi, sV, sVec are done
-      stage_rows<T, kVec>(sEi, ld, Ei + bct * m * d, mi_u, m, d, lane);
-      const int cnt_i = count_valid(mi_u, m, lane);
-      bool vi[2];
+    // the unit's state: its item-mask bits and ei, the user rows'
+    // reductions of M over the columns so far (rows 16 mt + 8 h + g, the
+    // lane's columns), and the item side's running softmax (max, sum, and
+    // weighted rows: bf16, components 32 r + 8 q + c of the sum in every
+    // lane; f32, the lane's rows and components)
+    unsigned long long ibits = 0;
+    float su_part[kMT][2], imx = kNeg, isum = 0.f, iacc[R][kComp];
+    float es[R][kComp];   // kDot: the sum of the lane's item rows so far
+    for (int u = 0, tt = 0, st = 0; u < nc;) {
+      cp_async_wait<0>();   // the tile has landed
+      __syncwarp();     // ... for every lane; the stage before it is free
+      const T* sx = ring + st * stage;
+      // slot i's rows (rows past a short stage: zeros); bf16 holds both
+      // slots' in registers, f32 reads a slot's where it is used
+      auto load_x = [&](int i, Raw<T> (&xi)[R]) {
+        const bool in = 8 * i + g < kr;
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int k = lane + 32 * r;
-        vi[r] = k < m && mi_u[k];
-      }
-      __syncwarp();
-      float su[2] = {0.f, 0.f}, si[2] = {0.f, 0.f};
-      if constexpr (!kMaxPool) {
-        const float inv_i =
-            kPool == kWMean ? 1.f / fmaxf((float)cnt_i, 1.f) : 1.f;
-        for (int e = lane; e < d; e += 32) {
-          float s = 0.f;
-          for (int k = 0; k < m; ++k) s += sEi[k * ld + e];
-          sVec[e] = s * inv_i;
-        }
-        __syncwarp();
-        // v_e = sum_k Wr[e][k] Es_k (+ ei_e)
-        for (int e = lane; e < d; e += 32) {
-          const float s = sdot(sWr + e * ld, sVec, d);
-          sV[e] = target_aware ? s + to_f32(ei[bc * d + e]) : s;
-        }
-        __syncwarp();
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int j = lane + 32 * r;
-          if (j < n) su[r] = sdot(sEu + j * ld, sV, d) * scale;
-          if (j < m) si[r] = sdot(sEi + j * ld, sW, d) * scale;
-        }
-      } else {
-        // the relation matrix on the valid pairs, kNeg elsewhere
-        for (int p = lane; p < n * m; p += 32) {
-          const int j = p / m;
-          const int k = p - j * m;
-          sM[p] = (mu_bt[j] && mi_u[k])
-                      ? sdot(sEuW + j * ld, sEi + k * ld, d) * scale
-                      : kNeg;
-        }
-        for (int e = lane; e < d; e += 32) {
-          sV[e] = target_aware ? to_f32(ei[bc * d + e]) : 0.f;
-        }
-        __syncwarp();
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int j = lane + 32 * r;
-          if (j < n) {
-            float mx = kNeg;
-            for (int k = 0; k < m; ++k) mx = fmaxf(mx, sM[j * m + k]);
-            su[r] = cnt_i > 0 ? mx : 0.f;
-            if (target_aware) su[r] += sdot(sEu + j * ld, sV, d) * scale;
-          }
-          if (j < m) {
-            float mx = kNeg;
-            for (int i = 0; i < n; ++i) mx = fmaxf(mx, sM[i * m + j]);
-            si[r] = cnt_u > 0 ? mx : 0.f;
-            if (target_aware) si[r] += sdot(sEi + j * ld, sW, d) * scale;
+        for (int r = 0; r < R; ++r) {
+          if (in) {
+            lds_raw(sx + (8 * i + g) * P + 32 * r + 8 * q, xi[r]);
+          } else {
+            load_raw<false>(sx, 0, 0, false, xi[r]);
           }
         }
+      };
+      Raw<T> x[2][R];
+      if constexpr (kBF16) {
+        load_x(0, x[0]);
+        load_x(1, x[1]);
       }
-      softmax2(su, vu);
-      softmax2(si, vi);
+      if (tt == 0) {   // the unit's first tile
+        const uint8_t* mk = sMk + u * m;
+        ibits =
+            (unsigned long long)__ballot_sync(kFull, lane < m && mk[lane]) |
+            (unsigned long long)__ballot_sync(kFull,
+                                              lane + 32 < m && mk[lane + 32])
+                << 32;
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int j = lane + 32 * r;
-        if (j < n) sA[j] = su[r];
-        if (j < m) sB[j] = si[r];
+        for (int mt = 0; mt < kMT; ++mt) {
+          su_part[mt][0] = su_part[mt][1] = kInit;
+        }
+        imx = kNeg;
+        isum = 0.f;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+#pragma unroll
+          for (int c = 0; c < kComp; ++c) iacc[r][c] = es[r][c] = 0.f;
+        }   // (in the kOne instances the first tile's sums replace these)
       }
-      __syncwarp();
-      for (int e = lane; e < d; e += 32) {
-        float x = 0.f, y = 0.f;
-        for (int j = 0; j < n; ++j) x += sA[j] * sEu[j * ld + e];
-        for (int k = 0; k < m; ++k) y += sB[k] * sEi[k * ld + e];
-        cu[bct * d + e] = from_f32<T>(x);
-        ci[bct * d + e] = from_f32<T>(y);
+      issue_next();
+
+      // M = EuW Ei^T on the tile's 16 columns (+ the max pool's biases: 0
+      // on a valid row and column, kNeg elsewhere); lane (g, q) holds rows
+      // 16 mt + g (+ 8), columns 8 i + 2 q (+ 1) of slot i
+      const unsigned tb = (unsigned)(ibits >> (16 * tt)) & 0xffffu;
+      float cv[4] = {kInit, kInit, kInit, kInit};   // [slot][column parity]
+#pragma unroll
+      for (int mt = 0; mt < (kDot ? 0 : kMT); ++mt) {
+        if (mt >= MT) break;   // uniform across the warp
+        float ah[2][4], al[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            al[i][v] = 0.f;
+            ah[i][v] = 0.f;
+            if constexpr (kMaxPool) {
+              const int j = 16 * mt + 8 * (v >> 1) + g;
+              ah[i][v] = (((ubits >> j) & 1ull) ? 0.f : kNeg) +
+                         (((tb >> (8 * i + 2 * q + (v & 1))) & 1u) ? 0.f
+                                                                   : kNeg);
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const int f0 = (mt * KS + r * KPC) * 32 + lane;
+            if constexpr (kBF16) {
+              relation2(ah[i], al[i], sAh + f0, sAl + f0, x[i][r]);
+            } else {
+              Raw<T> xi[R];
+              load_x(i, xi);
+              relation2(ah[i], al[i], sAh + f0, sAl + f0, xi[r]);
+            }
+          }
+        }
+        // the rows' reductions so far, and the columns' over these rows
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const float a0 = ah[i][2 * h] + al[i][2 * h];
+            const float a1 = ah[i][2 * h + 1] + al[i][2 * h + 1];
+            if constexpr (kMaxPool) {
+              su_part[mt][h] = fmaxf(su_part[mt][h], fmaxf(a0, a1));
+              cv[2 * i] = fmaxf(cv[2 * i], a0);
+              cv[2 * i + 1] = fmaxf(cv[2 * i + 1], a1);
+            } else {
+              su_part[mt][h] += a0 + a1;
+              cv[2 * i] += a0;
+              cv[2 * i + 1] += a1;
+            }
+          }
+        }
       }
+      // the columns across the rows of all lanes: the transposing steps
+      // leave column 8 ((g >> 2) & 1) + 2 q + ((g >> 1) & 1) in lane (g, q)
+      if constexpr (kMaxPool) {
+        fold_max<2>(cv, lane, 16);
+        fold_max<1>(cv, lane, 8);
+        cv[0] = fmaxf(cv[0], __shfl_xor_sync(kFull, cv[0], 4));
+        if (ubits == 0) cv[0] = 0.f;   // no valid user row: the maxima are 0
+      } else if constexpr (!kDot) {
+        fold<2>(cv, lane, 16);
+        fold<1>(cv, lane, 8);
+        cv[0] = (cv[0] + __shfl_xor_sync(kFull, cv[0], 4)) * inv_u;
+      }
+      if constexpr (kBF16) {   // + eu . Ei_k: exact products, tensor cores
+        if (target_aware) {
+          float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            Raw<T> ev;
+            lds_raw(sev + 32 * r, ev);
+            vec_rows(t0, ev.v, x[0][r].v);
+            vec_rows(t1, ev.v, x[1][r].v);
+          }
+          const float ta = (g & 2) ? t0[1] : t0[0];
+          const float tc = (g & 2) ? t1[1] : t1[0];
+          cv[0] += (g & 4) ? tc : ta;
+        }
+      }
+      // si of item row 16 tt + 8 i + g (column 8 i + g), the item softmax
+      // online over the unit's tiles
+      float s[2], tmax = kNeg;
+      bool valid[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        s[i] = kDot ? 0.f
+                    : __shfl_sync(kFull, cv[0],
+                                  16 * i + 8 * (g & 1) + (g >> 1));
+        if constexpr (!kBF16) {   // + eu . Ei_k on the CUDA cores (kDot:
+          if (kDot || target_aware) {   // the whole score, eu's row Em Wr + eu
+            Raw<T> ev[R];
+#pragma unroll
+            for (int r = 0; r < R; ++r) lds_raw(sev + 32 * r, ev[r]);
+            Raw<T> xi[R];
+            asm volatile("" ::: "memory");   // read again, not held
+            load_x(i, xi);
+            float tdot = dot_chunks<T, R>(xi, ev);
+            tdot += __shfl_xor_sync(kFull, tdot, 1);
+            s[i] += tdot + __shfl_xor_sync(kFull, tdot, 2);
+          }
+        }
+        s[i] *= c2;
+        valid[i] = (tb >> (8 * i + g)) & 1u;
+        if (valid[i]) tmax = fmaxf(tmax, s[i]);
+      }
+      const float nm = kOne ? g_max(tmax) : fmaxf(imx, g_max(tmax));
+      const float rs = kOne ? 0.f : fast_exp2(imx - nm);
+      imx = nm;
+      float e[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) e[i] = valid[i] ? fast_exp2(s[i] - nm) : 0.f;
+      isum = isum * rs + e[0] + e[1];
+      unsigned wa[4];
+      if constexpr (kBF16) weights_a(e, lane, wa);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float y[kComp];
+#pragma unroll
+        for (int c = 0; c < kComp; ++c) y[c] = kOne ? 0.f : iacc[r][c] * rs;
+        if constexpr (kBF16) {   // the weighted sum on the tensor cores
+          weighted_rows(wa, x[0][r].v, x[1][r].v, y);
+        } else {   // f32: the rows read again (fewer registers held)
+          asm volatile("" ::: "memory");   // not the values loaded before
+          Raw<T> r0, r1;
+          load_raw<false>(sx, 0, 0, false, r0);
+          load_raw<false>(sx, 0, 0, false, r1);
+          if (g < kr) lds_raw(sx + g * P + 32 * r + 8 * q, r0);
+          if (8 + g < kr) lds_raw(sx + (8 + g) * P + 32 * r + 8 * q, r1);
+          float x0[kComp], x1[kComp];
+          unpack(r0, x0);
+          unpack(r1, x1);
+#pragma unroll
+          for (int c = 0; c < kComp; ++c) {
+            y[c] = fmaf(e[1], x1[c], fmaf(e[0], x0[c], y[c]));
+            if constexpr (kDot) es[r][c] += x0[c] + x1[c];
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < kComp; ++c) iacc[r][c] = y[c];
+      }
+      st = st + 1 == S ? 0 : st + 1;
+      if (++tt < nti) continue;
+
+      // --- the unit's end: ci, then the user side and cu (its ei came
+      // with this tile)
+      const long long bct = unit_bct(u);
+      Raw<T> eiv[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) lds_raw(sx + kr * P + 32 * r + 8 * q, eiv[r]);
+      const float inv_i = 1.f / fmaxf(g_sum(isum), 1e-20f);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if constexpr (kBF16) {
+          if (g == 0) {
+#pragma unroll
+            for (int c = 0; c < kComp; ++c) iacc[r][c] *= inv_i;
+            if (v16) {
+              store8<true>(ci + bct * d, 32 * r + 8 * q, d, iacc[r]);
+            } else {
+              store8<false>(ci + bct * d, 32 * r + 8 * q, d, iacc[r]);
+            }
+          }
+        } else {
+          fold<4>(iacc[r], lane, 16);
+          fold<2>(iacc[r], lane, 8);
+          fold<1>(iacc[r], lane, 4);
+          const int l = 32 * r + 8 * q + g;   // the component lane (g, q) holds
+          if (l < d) ci[bct * d + l] = from_f32<T>(iacc[r][0] * inv_i);
+        }
+      }
+      const float inv_cnt =
+          mean ? 1.f / fmaxf((float)__popcll(ibits), 1.f) : 1.f;
+      if constexpr (kDot) {   // su_j's part: EuW_j . Es, the lane's components
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+#pragma unroll
+          for (int c = 0; c < kComp; ++c) {
+            es[r][c] += __shfl_xor_sync(kFull, es[r][c], 4);
+            es[r][c] += __shfl_xor_sync(kFull, es[r][c], 8);
+            es[r][c] += __shfl_xor_sync(kFull, es[r][c], 16);
+          }
+        }
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+          su_part[mt][0] = su_part[mt][1] = 0.f;
+          if (mt >= MT) continue;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+#pragma unroll
+            for (int s = 0; s < 4; ++s) {   // the words as above
+              const uint4 a = sAh[(mt * KS + r * KPC + s) * 32 + lane];
+              su_part[mt][0] +=
+                  __uint_as_float(a.x) * es[r][2 * s] +
+                  __uint_as_float(a.z) * es[r][2 * s + 1];
+              su_part[mt][1] +=
+                  __uint_as_float(a.y) * es[r][2 * s] +
+                  __uint_as_float(a.w) * es[r][2 * s + 1];
+            }
+          }
+        }
+      }
+      float su[2 * kMT], mx = kNeg;
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        float tu[4] = {0.f, 0.f, 0.f, 0.f};   // Eu_j . ei, bf16
+        if constexpr (kBF16) {
+          if (target_aware && mt < MT) {
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              Raw<T> r0, r1;
+              lds_raw(sEu + (16 * mt + g) * P + 32 * r + 8 * q, r0);
+              lds_raw(sEu + (16 * mt + 8 + g) * P + 32 * r + 8 * q, r1);
+              rows_vec(tu, r0.v, r1.v, eiv[r].v);
+            }
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          su[2 * mt + h] = kNeg;
+          if (mt >= MT) continue;
+          float v = su_part[mt][h];
+          if constexpr (kMaxPool) {
+            v = fmaxf(v, __shfl_xor_sync(kFull, v, 1));
+            v = fmaxf(v, __shfl_xor_sync(kFull, v, 2));
+            if (ibits == 0) v = 0.f;   // no valid item row: the maxima are 0
+          } else {
+            v += __shfl_xor_sync(kFull, v, 1);
+            v = (v + __shfl_xor_sync(kFull, v, 2)) * inv_cnt;
+          }
+          const int j = 16 * mt + 8 * h + g;
+          if constexpr (kBF16) {
+            v += tu[2 * h];
+          } else if (target_aware) {   // Eu_j . ei on the CUDA cores
+            Raw<T> xj[R];
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              lds_raw(sEu + j * P + 32 * r + 8 * q, xj[r]);
+            }
+            float tdot = dot_chunks<T, R>(xj, eiv);
+            tdot += __shfl_xor_sync(kFull, tdot, 1);
+            v += tdot + __shfl_xor_sync(kFull, tdot, 2);
+          }
+          su[2 * mt + h] = v * c2;
+          if ((ubits >> j) & 1ull) mx = fmaxf(mx, su[2 * mt + h]);
+        }
+      }
+      mx = g_max(mx);
+      float w[2 * kMT], usum = 0.f;
+#pragma unroll
+      for (int i = 0; i < 2 * kMT; ++i) {
+        const int j = 8 * i + g;
+        w[i] = i < 2 * MT && ((ubits >> j) & 1ull) ? fast_exp2(su[i] - mx)
+                                                   : 0.f;
+        usum += w[i];
+      }
+      const float inv_s = 1.f / fmaxf(g_sum(usum), 1e-20f);
+      unsigned ua[kMT][4];   // each m-tile's weights as A (bf16)
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        if (mt >= MT) break;
+        const float wm[2] = {w[2 * mt], w[2 * mt + 1]};
+        if constexpr (kBF16) weights_a(wm, lane, ua[mt]);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float y[kComp];
+        if constexpr (kBF16) {   // the weighted sum on the tensor cores,
+#pragma unroll                   // an m-tile of rows at a time
+          for (int c = 0; c < kComp; ++c) y[c] = 0.f;
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt) {
+            if (mt >= MT) break;
+            Raw<T> x0, x1;
+            lds_raw(sEu + (16 * mt + g) * P + 32 * r + 8 * q, x0);
+            lds_raw(sEu + (16 * mt + 8 + g) * P + 32 * r + 8 * q, x1);
+            weighted_rows(ua[mt], x0.v, x1.v, y);
+          }
+          if (g == 0) {
+#pragma unroll
+            for (int c = 0; c < kComp; ++c) y[c] *= inv_s;
+            if (v16) {
+              store8<true>(cu + bct * d, 32 * r + 8 * q, d, y);
+            } else {
+              store8<false>(cu + bct * d, 32 * r + 8 * q, d, y);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int c = 0; c < kComp; ++c) y[c] = 0.f;
+#pragma unroll
+          for (int i = 0; i < 2 * kMT; ++i) {
+            if (i >= 2 * MT) break;
+            Raw<T> xj;
+            lds_raw(sEu + (8 * i + g) * P + 32 * r + 8 * q, xj);
+            float xv[kComp];
+            unpack(xj, xv);
+#pragma unroll
+            for (int c = 0; c < kComp; ++c) y[c] = fmaf(w[i], xv[c], y[c]);
+          }
+          fold<4>(y, lane, 16);
+          fold<2>(y, lane, 8);
+          fold<1>(y, lane, 4);
+          const int l = 32 * r + 8 * q + g;
+          if (l < d) cu[bct * d + l] = from_f32<T>(y[0] * inv_s);
+        }
+      }
+      tt = 0;
+      ++u;
     }
   }
 }
@@ -1201,19 +1938,6 @@ int num_sms() {
   return sms;
 }
 
-bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
-
-// Warps a block, at most 4, that fit next to Wr in shared memory with
-// `per_warp` floats each; the launch's shared-memory bytes in *smem.
-int fit_warps(int d, int per_warp, long long work, int* smem) {
-  const int wr = d * row_stride(d) * 4;
-  int w = (kSmemLimit - wr) / (per_warp * 4);
-  if (w > kWideMaxWarps) w = kWideMaxWarps;
-  if (w > work) w = (int)work;
-  *smem = wr + w * per_warp * 4;
-  return w;
-}
-
 // Grid of a kernel whose blocks loop over their work: the blocks that are
 // resident at once, or fewer where the work is smaller.
 template <typename Kernel>
@@ -1227,60 +1951,69 @@ int grid_for(Kernel kernel, int threads, int smem, long long blocks_wanted) {
   return (int)(blocks_wanted < cap ? blocks_wanted : cap);
 }
 
-template <typename T, int kPool, bool kVec>
+// The forward's launch: the warps a block (as many as shared memory holds
+// next to the block's Wr fragments, at most fwd_max_warps), the resident
+// blocks, and work items of a (b, t) and a run of `chunk` <= kMaxChunk
+// candidates, split so that each resident warp has about kFwdItemsPerWarp
+// items, with at least two candidates an item where C allows.
+template <typename T, bool kMaxPool, int R, int kMT, bool kVec>
 int fwd_launch(const void* Eu, const void* Ei, const void* mu, const void* mi,
                const float* Wr, const void* eu, const void* ei, void* cu,
                void* ci, int B, int C, int Tn, int n, int m, int d,
-               int target_aware, cudaStream_t stream) {
-  // a warp's work item: a (b, t) and a run of `chunk` candidates, split so
-  // that about kFwdItemsWanted items run where B * T is small
+               int target_aware, int mean, cudaStream_t stream) {
+  auto kernel = wide_fwd_kernel<T, kMaxPool, R, kMT, kVec>;
+  const int MT = (n + 15) / 16;
   const long long bt = (long long)B * Tn;
-  long long chunks = (kFwdItemsWanted + bt - 1) / bt;
-  if (chunks > C) chunks = C;
+  int warps = (kSmemLimit - fwd_wr_bytes<R>()) /
+              fwd_warp_bytes<T, R>(MT, kStages, m, C);
+  if (warps > fwd_max_warps<T>(R, kMT)) warps = fwd_max_warps<T>(R, kMT);
+  if (warps > bt * C) warps = (int)(bt * C);
+  if (warps < 1) return (int)cudaErrorInvalidValue;
+  const int smem =
+      fwd_wr_bytes<R>() + warps * fwd_warp_bytes<T, R>(MT, kStages, m, C);
+  const long long resident = grid_for(kernel, warps * 32, smem, 1LL << 40);
+  long long chunks = (resident * warps * kFwdItemsPerWarp + bt - 1) / bt;
+  if (chunks < (C + kMaxChunk - 1) / kMaxChunk) {
+    chunks = (C + kMaxChunk - 1) / kMaxChunk;
+  }
+  // at least two units an item where C allows: EuW, formed once an item,
+  // then serves both (on an H100, 1.13-1.36x faster than one at n = m =
+  // 40, C = 2)
+  if (chunks > (C + 1) / 2) chunks = (C + 1) / 2;
   const int chunk = (int)((C + chunks - 1) / chunks);
   chunks = (C + chunk - 1) / chunk;
   const long long items = bt * chunks;
-  int smem = 0;
-  const int warps =
-      fit_warps(d, fwd_warp_floats(n, m, d, kPool == kWMax), items, &smem);
-  if (warps < 1) return (int)cudaErrorInvalidValue;
-  auto kernel = wide_fwd_kernel<T, kPool, kVec>;
-  const int blocks =
-      grid_for(kernel, warps * 32, smem, (items + warps - 1) / warps);
+  const long long want = (items + warps - 1) / warps;
+  const int blocks = (int)(want < resident ? want : resident);
   kernel<<<blocks, warps * 32, smem, stream>>>(
       (const T*)Eu, (const T*)Ei, (const uint8_t*)mu, (const uint8_t*)mi, Wr,
       (const T*)eu, (const T*)ei, (T*)cu, (T*)ci, C, Tn, n, m, d,
-      target_aware, 1.0f / sqrtf((float)d), chunk, (int)chunks, items);
+      target_aware, mean, kLog2e / sqrtf((float)d), chunk, (int)chunks,
+      items);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int kPool>
-int fwd_dispatch(bool vec, const void* Eu, const void* Ei, const void* mu,
-                 const void* mi, const float* Wr, const void* eu,
-                 const void* ei, void* cu, void* ci, int B, int C, int Tn,
-                 int n, int m, int d, int target_aware, cudaStream_t s) {
-  return vec ? fwd_launch<T, kPool, true>(Eu, Ei, mu, mi, Wr, eu, ei, cu, ci,
-                                          B, C, Tn, n, m, d, target_aware, s)
-             : fwd_launch<T, kPool, false>(Eu, Ei, mu, mi, Wr, eu, ei, cu,
-                                           ci, B, C, Tn, n, m, d,
-                                           target_aware, s);
-}
-
-template <typename T>
-int fwd_pool(int pool, bool vec, const void* Eu, const void* Ei,
-             const void* mu, const void* mi, const float* Wr, const void* eu,
-             const void* ei, void* cu, void* ci, int B, int C, int Tn, int n,
-             int m, int d, int target_aware, cudaStream_t s) {
-  if (pool == kWSum) {
-    return fwd_dispatch<T, kWSum>(vec, Eu, Ei, mu, mi, Wr, eu, ei, cu, ci, B,
-                                  C, Tn, n, m, d, target_aware, s);
+// The instance for d (R: 32-component chunks a row), n and m (one user
+// m-tile and one item tile a unit, or up to 4 each), with 16-byte loads;
+// odd d and offset views, which have no speed target, take the one
+// instance with scalar loads that covers every shape (R = 4, kMT = 4).
+template <typename T, bool kMaxPool>
+int fwd_width(const void* Eu, const void* Ei, const void* mu, const void* mi,
+              const float* Wr, const void* eu, const void* ei, void* cu,
+              void* ci, int B, int C, int Tn, int n, int m, int d,
+              int target_aware, int mean, int vec, cudaStream_t s) {
+#define WIDE_FWD(RR, MM, VEC)                                                \
+  fwd_launch<T, kMaxPool, RR, MM, VEC>(Eu, Ei, mu, mi, Wr, eu, ei, cu, ci,   \
+                                       B, C, Tn, n, m, d, target_aware,      \
+                                       mean, s)
+  if (!vec) return WIDE_FWD(4, 4, false);
+  if (n <= 16 && m <= 16) {
+    return d <= 32 ? WIDE_FWD(1, 1, true) : d <= 64 ? WIDE_FWD(2, 1, true)
+                                                    : WIDE_FWD(4, 1, true);
   }
-  if (pool == kWMean) {
-    return fwd_dispatch<T, kWMean>(vec, Eu, Ei, mu, mi, Wr, eu, ei, cu, ci, B,
-                                   C, Tn, n, m, d, target_aware, s);
-  }
-  return fwd_dispatch<T, kWMax>(vec, Eu, Ei, mu, mi, Wr, eu, ei, cu, ci, B, C,
-                                Tn, n, m, d, target_aware, s);
+  return d <= 32 ? WIDE_FWD(1, 4, true) : d <= 64 ? WIDE_FWD(2, 4, true)
+                                                  : WIDE_FWD(4, 4, true);
+#undef WIDE_FWD
 }
 
 bool wide_shape_ok(int n, int m, int d) {
@@ -1414,15 +2147,22 @@ extern "C" int wide_fwd(const void* Eu, const void* Ei, const void* mu,
     return (int)cudaErrorInvalidValue;
   }
   if ((long long)B * C * Tn == 0) return 0;
+  // the 16-byte loads read Eu, Ei, eu and ei; cu and ci are written a
+  // component a lane
   const int es = dtype == 0 ? 4 : 2;
-  const bool vec = (d * es) % 16 == 0 && aligned16(Eu) && aligned16(Ei);
+  const int vec = (d * es) % 16 == 0 && aligned16(Eu) && aligned16(Ei) &&
+                  aligned16(eu) && aligned16(ei);
+  const int mean = pool == kWMean;
   cudaStream_t s = (cudaStream_t)stream;
-  return dtype == 0
-             ? fwd_pool<float>(pool, vec, Eu, Ei, mu, mi, Wr, eu, ei, cu, ci,
-                               B, C, Tn, n, m, d, target_aware, s)
-             : fwd_pool<__nv_bfloat16>(pool, vec, Eu, Ei, mu, mi, Wr, eu, ei,
-                                       cu, ci, B, C, Tn, n, m, d,
-                                       target_aware, s);
+#define WIDE_FWD(T, MAX)                                                     \
+  fwd_width<T, MAX>(Eu, Ei, mu, mi, Wr, eu, ei, cu, ci, B, C, Tn, n, m, d,   \
+                    target_aware, mean, vec, s)
+  if (dtype == 0) {
+    return pool == kWMax ? WIDE_FWD(float, true) : WIDE_FWD(float, false);
+  }
+  return pool == kWMax ? WIDE_FWD(__nv_bfloat16, true)
+                       : WIDE_FWD(__nv_bfloat16, false);
+#undef WIDE_FWD
 }
 
 extern "C" int wide_bwd(const void* Eu, const void* Ei, const void* mu,

@@ -184,7 +184,7 @@ def test_cand_kernel_refuses_wide_rows(cuda):
 # B rows) and "unaligned" take the scalar loads; "masked" masks every user
 # row of the last b and every item row of its last candidate. C = 600 at
 # B = 1 splits each (b, t)'s candidates over several warps.
-WIDE_CASES = [
+_WIDE_BASE = [
     (3, 2, 3, 10, 10, 33, True, ""),
     (3, 2, 3, 10, 10, 64, True, ""),
     (3, 2, 3, 10, 10, 64, False, "masked"),
@@ -195,6 +195,20 @@ WIDE_CASES = [
     (2, 2, 2, 64, 40, 128, True, ""),
     (3, 2, 3, 10, 10, 64, True, "unaligned"),
     (1, 600, 2, 10, 10, 64, True, ""),
+]
+# The forward's edges: one row a side; 16 user rows (one m-tile) against
+# 17 item rows (three 8-row tiles); d = 65 (a chunk of 32 components with
+# one past d); one candidate; every row masked; candidate 0's item rows
+# all masked ("itemmasked": its max-pool scores are 0 plus the target
+# terms); n = m = 64 at d = 128 (four m-tiles, eight item tiles).
+WIDE_CASES = _WIDE_BASE + [
+    (3, 2, 3, 1, 1, 64, True, ""),
+    (2, 2, 2, 16, 17, 64, True, ""),
+    (2, 3, 2, 10, 10, 65, True, ""),
+    (3, 1, 3, 10, 10, 64, True, ""),
+    (3, 2, 3, 10, 10, 64, True, "allmasked"),
+    (3, 2, 3, 10, 10, 64, True, "itemmasked"),
+    (2, 2, 2, 64, 64, 128, True, ""),
 ]
 WIDE_IDS = ["-".join(map(str, c[:7])) + (f"-{c[7]}" if c[7] else "")
             for c in WIDE_CASES]
@@ -209,6 +223,8 @@ def _wide_inputs(B, C, T, n, m, d, variant, dtype, device):
     elif variant == "allmasked":
         args[2][:] = False
         args[3][:] = False
+    elif variant == "itemmasked":
+        args[3][:, 0] = False
     elif variant == "unaligned":
         args = [_unaligned(a) if i in (0, 1, 5, 6) else a
                 for i, a in enumerate(args)]
@@ -253,13 +269,29 @@ def test_wide_kernel(cuda, B, C, T, n, m, d, ta, variant, pool, dtype):
         if variant == "masked":
             assert (got[0][B - 1] == 0).all()
             assert (got[1][B - 1, C - 1] == 0).all()
+        if variant == "allmasked":
+            assert all((g == 0).all() for g in got)
+        if variant == "itemmasked":
+            assert (got[1][:, 0] == 0).all()
+
+
+@pytest.mark.parametrize("pool", ["sum", "mean", "max"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_forward_bit_equal(cuda, pool, dtype):
+    """Two runs of the wide forward give the same bits: a warp sums its
+    rows in a fixed order, with no atomics."""
+    args = _wide_inputs(64, 3, 9, 10, 10, 64, "", dtype, cuda)
+    first = tpair.cross_coattn_pair(*args, pool=pool)
+    again = tpair.cross_coattn_pair(*args, pool=pool)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, g) for a, g in zip(again, first))
 
 
 # More backward shapes: one candidate, five (three chunks of the kernel's
 # two), one slot, d = 96 (a quarter of the lanes' components past d), n =
 # m = 64 at d = 64 and d = 128 (one warp a block), C = 5 there (the dWr
 # accumulator in device memory), every row masked, and no target.
-WIDE_BWD_CASES = WIDE_CASES[:-1] + [
+WIDE_BWD_CASES = _WIDE_BASE[:-1] + [
     (3, 1, 3, 10, 10, 64, True, ""),
     (3, 5, 3, 10, 10, 64, True, ""),
     (5, 2, 1, 10, 10, 64, True, ""),

@@ -267,3 +267,101 @@ def test_launch_stream_guard_and_error(monkeypatch):
     assert calls[-1] == (0, 8, 1001) and guards == [1]
     with pytest.raises(RuntimeError, match=r"fake failure \(3\)"):
         _build.launch("fake", entry, 0, 3)
+
+
+def _tf32(x):
+    """Round f32 to tf32 (10 explicit mantissa bits), to nearest with ties
+    away from zero, as the card's cvt.rna.tf32.f32."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).to(torch.float32)   # round to nearest even
+
+
+def _split(x, fmt):
+    hi = fmt(x)
+    return hi, fmt(x - hi)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_wide_forward_split_error(seed, dtype):
+    """The wide forward's relation matrix M = (Eu Wr) Ei^T on the tensor
+    cores (every pool's in bf16, the max pool's in f32), its operand
+    splits emulated in torch (products exact, sums in
+    float64), within the bound `csrc/coattn_wide.cu`'s note states of the
+    float64 value, at d = 128 and n = m = 64. bf16 inputs: Eu and Ei are
+    exact in bf16; Wr and EuW (f32) are split into bf16 hi + lo, two
+    products each, and each split leaves at most 2^-16 |x|, so M is within
+    2^-15 sum_l (|EuW_jl Ei_kl| + sum_e |Eu_je Wr_el Ei_kl|). f32 inputs:
+    3xTF32, every operand split into tf32 hi + lo and lo * lo dropped,
+    2^-20 of the same sums. (The card's f32 sums add the usual d 2^-24 of
+    any f32 dot product on top.) The hi parts alone, one pass as plain
+    bf16 or TF32 would take, miss the bound."""
+    rng = np.random.default_rng(seed)
+    n = m = 64
+    d = 128
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    Eu, Ei, Wr = f(n, d), f(m, d), f(d, d) * 0.3
+    if dtype == "bfloat16":
+        Eu, Ei = _bf16(Eu), _bf16(Ei)
+        wh, wl = _split(Wr, _bf16)
+        euw = (Eu.double() @ wh.double() + Eu.double() @ wl.double()).float()
+        ah, al = _split(euw, _bf16)
+        M = ah.double() @ Ei.double().T + al.double() @ Ei.double().T
+        one_pass = (Eu.double() @ wh.double()).float()
+        one_pass = _bf16(one_pass).double() @ Ei.double().T
+        bound = 2.0 ** -15
+    else:
+        eh, el = _split(Eu, _tf32)
+        wh, wl = _split(Wr, _tf32)
+        euw = (eh.double() @ wh.double() + eh.double() @ wl.double()
+               + el.double() @ wh.double()).float()
+        ah, al = _split(euw, _tf32)
+        ih, il = _split(Ei, _tf32)
+        M = (ah.double() @ ih.double().T + ah.double() @ il.double().T
+             + al.double() @ ih.double().T)
+        one_pass = (eh.double() @ wh.double()).float()
+        one_pass = _tf32(one_pass).double() @ ih.double().T
+        bound = 2.0 ** -20
+    exact_euw = Eu.double() @ Wr.double()
+    want = exact_euw @ Ei.double().T
+    scale = (exact_euw.abs() @ Ei.double().abs().T
+             + Eu.double().abs() @ Wr.double().abs() @ Ei.double().abs().T)
+    err = (M - want).abs()
+    assert (err <= bound * scale).all(), float((err / scale).max())
+    # the lo parts are needed: the hi parts alone miss the bound
+    assert ((one_pass - want).abs() > bound * scale).any()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_wide_forward_f32_dot_error(seed):
+    """The wide forward's f32 sum-pool scores without a relation matrix:
+    su_j = EuW_j . Es and si_k = Ei_k . (Em Wr), Em Wr as EuW's column
+    sums, with EuW from 3xTF32 products (emulated in torch, products
+    exact, sums in float64) rounded to f32, and the dots in float64:
+    within 2^-20 of the float64 value scaled by the same dots of absolute
+    values through |Eu| |Wr|, at d = 128 and n = m = 64, as
+    `csrc/coattn_wide.cu`'s note states. The hi parts alone miss it."""
+    rng = np.random.default_rng(seed)
+    n = m = 64
+    d = 128
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    Eu, Ei, Wr = f(n, d), f(m, d), f(d, d) * 0.3
+    eh, el = _split(Eu, _tf32)
+    wh, wl = _split(Wr, _tf32)
+    euw = (eh.double() @ wh.double() + eh.double() @ wl.double()
+           + el.double() @ wh.double()).float().double()
+    es = Ei.double().sum(0)
+    exact = Eu.double() @ Wr.double()
+    mag = Eu.double().abs() @ Wr.double().abs()
+    one_pass = (eh.double() @ wh.double()).float().double()
+    for scores, want, scale in (
+            (lambda e: e @ es, exact @ es, mag @ es.abs()),
+            (lambda e: Ei.double() @ e.sum(0), Ei.double() @ exact.sum(0),
+             Ei.double().abs() @ mag.sum(0))):
+        err = (scores(euw) - want).abs()
+        assert (err <= 2.0 ** -20 * scale).all(), float((err / scale).max())
+        assert ((scores(one_pass) - want).abs() > 2.0 ** -20 * scale).any()
