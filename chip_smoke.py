@@ -120,8 +120,23 @@ fails or no CUDA device is present.
    at the launch shapes uniform negatives give: configs3's user table
    over [positive | negative] ([4096,2,9,10]) and the item histories of
    both candidates ([4096,2]), and configs0's shared table.
+8. The baseline roster ([roster]): the eight `baseline_*` presets (MF,
+   popularity, SVD++, DELF, GRU4Rec, Caser, SASRec, RRN), each as phase 7
+   runs a rung (the bench width, bf16, B=4096, stride 2 at 2x lr, its
+   uniform negatives): 3 warm-up and 50 counted steps in which the loss
+   must fall, with the gather's launches a step and the scatter-adds a
+   table-update step counted against `ROSTER` and no co-attention kernel
+   launched; a val on 8192 targets, a profile of 4 steps, a 4 x 256
+   request card against CPU in f32 and bf16 (the bf16 service casts the
+   [rows, 1] bias tables too), 3 small f32 steps card against CPU. Then
+   DELF's CLI for one epoch on phase 6's saved dataset. Phases 2 and 2b
+   hold the gather and scatter-add to their plain versions at the
+   roster's widths: a [rows, 1] bias table in f32 (and, gathered, in
+   bf16) and a 16-wide table.
 
-The line before the last lists each kernel with its launches in the
+The [roster] summary line gives each preset's step ms, kernels a step,
+idle share and val AUC. The line before the last lists each kernel with
+its launches in the
 training run of its path (the sum-pool run for the gather, scatter-add and
 candidates kernels, the mean-pool run for the per-pair kernels), its
 largest error against the plain version, and its, the plain version's and
@@ -164,6 +179,10 @@ BF16_TOL = 2e-2
 CPU_TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
            "bfloat16": dict(rtol=2e-2, atol=2e-3)}
 TRAIN_CPU_TOL = dict(rtol=1e-4, atol=1e-5)
+# SASRec's attention key bias adds one constant to each query's logits,
+# which the softmax cancels: its gradient is zero in exact arithmetic and
+# roundoff on a device, so card and CPU are held to its Adam travel only
+ZERO_GRAD_LEAF = "mha.key.bias"
 LOSS_TOL = dict(rtol=1e-5, atol=1e-6)     # f32 losses, card against CPU
 EVAL_TOL, EVAL_AUC_TOL = 1e-4, 1e-3
 # the card's published peaks (H100 SXM): HBM bytes/s, f32 outside the
@@ -373,6 +392,17 @@ def gather_cases(gen, dev) -> list:
         ("int32 [150000,9] ids [65537]",
          torch.randint(0, 1 << 30, (150000, T), generator=gen, device=dev,
                        dtype=torch.int32), (65537,)),
+        # the roster: a bias table one element wide over [positive |
+        # negative], the same cast to bf16 as serving casts it, and the
+        # presets' own 16-wide tables
+        ("f32 [50048,1] ids [4096,2] (roster bias table)",
+         torch.randn(50048, 1, generator=gen, device=dev), (BATCH, 2)),
+        ("bf16 [90560,1] ids [16,4096] (roster bias table, bf16 serving)",
+         torch.randn(90560, 1, generator=gen, device=dev).bfloat16(),
+         (ROWS, WIDE)),
+        ("f32 [90560,16] ids [4096,9,10] (roster presets' d=16)",
+         torch.randn(90560, 16, generator=gen, device=dev),
+         (BATCH, T, FAN)),
     ]
 
 
@@ -634,7 +664,7 @@ def phase_coattn_pair(card: str, dev, gen) -> dict:
 # --- phase 2b: backward kernels --------------------------------------------
 
 def _scatter_line(card, label, ids, src, V, lib_tables=None) -> dict:
-    """One grouped scatter-add (the segments ids, src into a [V, D] table)
+    """One grouped scatter-add (the segments ids, src into a [V, W] table)
     held to its plain version (exact on integer-valued sources, within
     1e-5 relative of it on random ones) and timed: the
     kernel eagerly (what a step pays) and by CUDA graph, the plain version,
@@ -658,9 +688,10 @@ def _scatter_line(card, label, ids, src, V, lib_tables=None) -> dict:
     ms = cuda_ms(lambda: scatter_add_rows(ids, src, V))
     gms = graph_ms(lambda: scatter_add_rows(ids, src, V))
     plain_ms = cuda_ms(lambda: scatter_add_rows_plain(ids, src, V))
-    zeros = torch.zeros(V, D, device=src[0].device)
+    W = src[0].shape[-1]
+    zeros = torch.zeros(V, W, device=src[0].device)
     flat_ids = torch.cat([x.reshape(-1) for x in ids])
-    flat_src = torch.cat([x.reshape(-1, D) for x in src])
+    flat_src = torch.cat([x.reshape(-1, W) for x in src])
     lib_ms = cuda_ms(lambda: torch.index_add(zeros, 0, flat_ids, flat_src))
     sep = ""
     if len(ids) > 1:
@@ -756,24 +787,29 @@ def phase_scatter(card: str, dev, gen, ds) -> dict:
     in-batch and with uniform negatives, configs0's shared table). Returns
     the kernels-line fields of the main path's call: configs3's item table
     with in-batch negatives."""
-    # training's four lookups one at a time: (table rows, ids shape)
-    cases = [("item [90560,32] ids [4096,9,10]", 90560, (BATCH, T, FAN)),
-             ("item [90560,32] ids [4096,1]", 90560, (BATCH, 1)),
-             ("user [50048,32] ids [4096,1,9,10]", 50048, (BATCH, 1, T, FAN)),
-             ("user [50048,32] ids [4096]", 50048, (BATCH,)),
+    # training's four lookups one at a time: (table rows, ids shape, width)
+    cases = [("item [90560,32] ids [4096,9,10]", 90560, (BATCH, T, FAN), D),
+             ("item [90560,32] ids [4096,1]", 90560, (BATCH, 1), D),
+             ("user [50048,32] ids [4096,1,9,10]", 50048, (BATCH, 1, T, FAN),
+              D),
+             ("user [50048,32] ids [4096]", 50048, (BATCH,), D),
              # uniform negatives: configs3's user table over [positive |
              # negative], and configs0's shared table
              ("user [50048,32] ids [4096,2,9,10] (configs3 uniform)", 50048,
-              (BATCH, 2, T, FAN)),
+              (BATCH, 2, T, FAN), D),
              ("shared [140608,32] ids [4096,9,10] (configs0)", SHARED_ROWS,
-              (BATCH, T, FAN))]
+              (BATCH, T, FAN), D),
+             # the roster: a bias table one element wide, a 16-wide table
+             ("bias [50048,1] ids [4096,2] (roster)", 50048, (BATCH, 2), 1),
+             ("item [90560,16] ids [4096,9,10] (roster d=16)", 90560,
+              (BATCH, T, FAN), 16)]
     worst = 0.0
-    for label, V, shape in cases:
+    for label, V, shape, W in cases:
         ids = torch.randint(1, V, shape, generator=gen, device=dev,
                             dtype=torch.int32)
         pad = torch.rand(shape, generator=gen, device=dev) < 0.3
         ids[pad] = 0        # masked neighbour slots: pad id, zero gradient
-        src = torch.randn(shape + (D,), generator=gen, device=dev)
+        src = torch.randn(shape + (W,), generator=gen, device=dev)
         src[pad] = 0.0
         worst = max(worst, _scatter_line(card, label, [ids], [src],
                                          V)["max_abs_err"])
@@ -1112,14 +1148,16 @@ def reset_counts() -> dict:
     return fns
 
 
-def check_table_scatters(what: str, cfg, launches: dict, timed) -> None:
+def check_table_scatters(what: str, cfg, launches: dict, timed,
+                         tables: int = 0) -> None:
     """One scatter-add a table on each table-update step of the steps
-    `timed` (a range of step numbers), none on the others: 2 a step with
-    separate user and item tables, 1 with configs0's shared table."""
+    `timed` (a range of step numbers), none on the others: `tables` a
+    step, by default 2 with separate user and item tables, 1 with
+    configs0's shared table."""
     stride = max(cfg.train.table_update_every, 1)
     updates = sum(1 for j in range(timed.start, timed.stop)
                   if j % stride == 0)
-    tables = 1 if cfg.model.shared_table else 2
+    tables = tables or (1 if cfg.model.shared_table else 2)
     got = launches["scatter_add_rows"]
     if got != tables * updates:
         raise AssertionError(f"{what}: scatter_add_rows launched {got} "
@@ -1291,8 +1329,9 @@ def _profile(state, graph, batches, neg_iw, card, step_ms,
             rows.append((ev.self_device_time_total / 1e3, ev.count, ev.key))
     busy = sum(r[0] for r in rows)
     per_step = busy / active
+    kernels = sum(r[1] for r in rows) / active
     log(f"{tag} profile of {active} steps: "
-        f"{sum(r[1] for r in rows) / active:.0f} kernels and {per_step:.3f} "
+        f"{kernels:.0f} kernels and {per_step:.3f} "
         f"ms of device time a step; idle share {1 - busy / wall:.3f} of the "
         f"profiled window ({wall / active:.3f} ms a step), "
         f"{1 - per_step / step_ms:.3f} of an unprofiled {step_ms:.3f} ms "
@@ -1300,17 +1339,21 @@ def _profile(state, graph, batches, neg_iw, card, step_ms,
     for ms, cnt, key in sorted(rows, reverse=True)[:15]:
         log(f"{tag}   {ms:8.3f} ms {100 * ms / busy:5.1f}% x{cnt:<5} "
             f"{key[:100]}")
+    return dict(kernels=kernels, device_ms=per_step,
+                idle=1 - per_step / step_ms)
 
 
 def _train_run(card: str, state, graph, batches, steps: int, tag: str,
-               want: set, full: bool = True, neg_iw=None, negatives=None):
+               want: set, full: bool = True, neg_iw=None, negatives=None,
+               tables: int = 0):
     """Warm-up steps, in which the tables must change on steps 0 and 2
     only; then `steps` steps through train_loop with the launches counted
     (the kernels in `want` and no other), in which the loss must stay
     finite and, when `full`, fall. `negatives`: the raw uniform draws for
     each batch; without them each step's in-batch shifts come from
-    state.generator. Returns the state, the launches and the step's ms by
-    CUDA events."""
+    state.generator. `tables`: the scatter-adds a table-update step makes
+    (check_table_scatters' default if 0). Returns the state, the launches
+    and the step's ms by CUDA events."""
     from score_tpu_torch.train import draw_shifts, train_loop, train_step
     losses, aucs = [], []
     for j in range(WARMUP_STEPS):
@@ -1350,7 +1393,7 @@ def _train_run(card: str, state, graph, batches, steps: int, tag: str,
     launches = {k: fn.launches for k, fn in fns.items()}
     log(f"{tag} launches in {steps} steps: {launches}")
     check_launches(tag, launches, want)
-    check_table_scatters(tag, state.cfg, launches, timed)
+    check_table_scatters(tag, state.cfg, launches, timed, tables)
     curve = [x.item() for x in losses] + ms["loss"].tolist()
     if not np.isfinite(curve).all():
         raise AssertionError(f"{tag} non-finite loss: {curve}")
@@ -1447,6 +1490,12 @@ def steps_vs_cpu(ds, cfg, tag: str, devices=("cuda", "cpu"), shifts=None,
     worst, where = 0.0, None
     for k, want in cpu[1].items():
         got = card[1][k]
+        if k.endswith(ZERO_GRAD_LEAF):
+            # roundoff on each side: within 3 Adam steps of the start
+            travel = max((x - sd[k]).abs().max().item() for x in (got, want))
+            if travel > 3 * cfg.train.learning_rate:
+                raise AssertionError(f"{tag} {k} moved {travel}")
+            continue
         torch.testing.assert_close(got, want, msg=k, **TRAIN_CPU_TOL)
         err = (got - want).abs().max().item()
         if err >= worst:
@@ -1556,8 +1605,8 @@ def phase_wide_model(card: str, ds, dev, dim: int, pool: str,
 # --- phase 5: eval ---------------------------------------------------------
 
 def _eval_model(cfg, ds, sd, device):
-    from score_tpu_torch.nn.model import ScoreModel
-    model = ScoreModel(cfg.model, ds.num_users, ds.num_items)
+    from score_tpu_torch.nn.model import build_model
+    model = build_model(cfg, ds.num_users, ds.num_items)
     model.load_state_dict({k: v.to(device) for k, v in sd.items()},
                           assign=True)
     return model
@@ -1774,17 +1823,20 @@ LADDER_CLI_ARGS = ("model.embed_dim=32", "model.hidden_dim=64",
                    f"train.eval_max_targets={EVAL_TARGETS}")
 
 
-def phase_ladder_rung(card: str, ds, dev, rung: str) -> dict:
+def phase_ladder_rung(card: str, ds, dev, rung: str, tag: str = "",
+                      want: set = frozenset(), tables: int = 0) -> dict:
     """Preset `rung` at the bench width with its uniform negatives:
     `_train_run`'s warm-up and 50 counted steps, in which the loss must
-    fall; a val on EVAL_TARGETS targets; a torch.profiler window; serving
-    card against CPU; 3 small f32 steps card against CPU from the same raw
-    negatives."""
+    fall and which launch the kernels `want` (default LADDER_KERNELS) and
+    `tables` scatter-adds a table-update step; a val on EVAL_TARGETS
+    targets; a torch.profiler window; serving card against CPU; 3 small
+    f32 steps card against CPU from the same raw negatives. Returns the
+    step's ms, the val AUC, the profile's numbers and the launches."""
     from score_tpu_torch.graph import device_graph
     from score_tpu_torch.params import init_params
     from score_tpu_torch.train import (draw_negatives, evaluate, init_state,
                                        make_eval_step)
-    tag = f"[ladder {rung}]"
+    tag = tag or f"[ladder {rung}]"
     cfg = ladder_config(rung, "bfloat16")
     if cfg.data.train_neg_mode != "uniform":
         raise AssertionError(f"{rung}: negatives {cfg.data.train_neg_mode}")
@@ -1799,8 +1851,9 @@ def phase_ladder_rung(card: str, ds, dev, rung: str) -> dict:
     negs = torch.stack([draw_negatives(state.generator, BATCH, k,
                                        ds.num_items)
                         for _ in batches]).to(dev)
-    state, _, ev_ms = _train_run(card, state, graph, batches, TIMED_STEPS,
-                                 tag, LADDER_KERNELS[rung], negatives=negs)
+    state, launches, ev_ms = _train_run(
+        card, state, graph, batches, TIMED_STEPS, tag,
+        want or LADDER_KERNELS[rung], negatives=negs, tables=tables)
 
     t0 = time.perf_counter()
     val = evaluate(make_eval_step(state.model), graph, ds.val,
@@ -1811,8 +1864,8 @@ def phase_ladder_rung(card: str, ds, dev, rung: str) -> dict:
     log(f"{tag} val after {WARMUP_STEPS + TIMED_STEPS} steps, "
         f"{EVAL_TARGETS} targets: auc {val['auc']:.4f} ndcg@10 "
         f"{val['ndcg@10']:.4f} in {val_s:.3f} s [{card}]")
-    _profile(state, graph, batches[-6:], None, card, ev_ms, tag,
-             negatives=negs[-6:])
+    prof = _profile(state, graph, batches[-6:], None, card, ev_ms, tag,
+                    negatives=negs[-6:])
     del state, graph, batches, negs
     torch.cuda.empty_cache()
 
@@ -1824,7 +1877,32 @@ def phase_ladder_rung(card: str, ds, dev, rung: str) -> dict:
     raw = [draw_negatives(gen, 256, small.data.num_train_neg, ds.num_items)
            for _ in range(3)]
     steps_vs_cpu(ds, small, tag, (dev, "cpu"), negatives=raw)
-    return dict(step_ms=ev_ms, val_auc=val["auc"])
+    return dict(step_ms=ev_ms, val_auc=val["auc"], **prof,
+                launches=launches)
+
+
+def run_cli(card: str, tag: str, preset: str, data_dir: str) -> None:
+    """`python -m score_tpu_torch.train <preset> <data_dir>` with
+    LADDER_CLI_ARGS (the bench width and batch, one epoch, the preset's
+    own negatives) in a subprocess: it must exit 0 and print one test
+    line."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "score_tpu_torch.train", preset, data_dir,
+         *LADDER_CLI_ARGS], cwd=Path(__file__).resolve().parent,
+        capture_output=True, text=True, timeout=DRIVER_TIMEOUT_S,
+        env=dict(os.environ, PYTHONUNBUFFERED="1"))
+    cli_s = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log(f"{tag} cli {preset}: {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"the {preset} CLI exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    if sum(line.startswith("test: auc")
+           for line in proc.stdout.splitlines()) != 1:
+        raise AssertionError(f"the {preset} CLI printed no test line")
+    log(f"{tag} cli {preset}: exit 0 in {cli_s:.1f} s of wall clock "
+        f"[{card}]")
 
 
 def phase_ladder(card: str, ds, dev, data_dir: str) -> None:
@@ -1832,25 +1910,51 @@ def phase_ladder(card: str, ds, dev, data_dir: str) -> None:
     epoch on the saved bench dataset, in a subprocess."""
     t_phase = time.perf_counter()
     out = {rung: phase_ladder_rung(card, ds, dev, rung) for rung in LADDER}
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "score_tpu_torch.train", "configs0", data_dir,
-         *LADDER_CLI_ARGS], cwd=Path(__file__).resolve().parent,
-        capture_output=True, text=True, timeout=DRIVER_TIMEOUT_S,
-        env=dict(os.environ, PYTHONUNBUFFERED="1"))
-    cli_s = time.perf_counter() - t0
-    for line in proc.stdout.splitlines():
-        log(f"[ladder] cli configs0: {line}")
-    if proc.returncode != 0:
-        raise AssertionError(f"the configs0 CLI exited {proc.returncode}:\n"
-                             f"{proc.stderr[-4000:]}")
-    if sum(line.startswith("test: auc")
-           for line in proc.stdout.splitlines()) != 1:
-        raise AssertionError("the configs0 CLI printed no test line")
-    log(f"[ladder] cli configs0: exit 0 in {cli_s:.1f} s of wall clock "
-        f"[{card}]")
+    run_cli(card, "[ladder]", "configs0", data_dir)
+    for rung in out:
+        out[rung].pop("launches")
     log(f"[ladder] {json.dumps(out)}; phase "
         f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
+# --- phase 8: the baseline roster ------------------------------------------
+
+# per preset: the gather launches a step (the history gathers, two a side,
+# and one a table's lookups) and the tables a table-update step
+# scatter-adds into: MF's embedding and bias tables, SVD++'s implicit
+# table too, DELF's two pairs, the ScoreModel flag sets' user and item
+# tables
+ROSTER = {"baseline_pop": (3, 1), "baseline_mf": (6, 4),
+          "baseline_svdpp": (7, 5), "baseline_delf": (8, 4),
+          "baseline_gru4rec": (5, 2), "baseline_caser": (5, 2),
+          "baseline_sasrec": (5, 2), "baseline_rrn": (8, 2)}
+ROSTER_KERNELS = {"gather_rows", "scatter_add_rows"}   # no co-attention
+ROSTER_CLI = "baseline_delf"                           # the widest
+
+
+def phase_roster(card: str, ds, dev, data_dir: str) -> dict:
+    """Phase 8: each of the eight baseline presets as phase 7 runs a rung
+    (the bench width, bf16, B=4096, stride 2 at 2x lr, its uniform
+    negatives), its gathers and scatter-adds counted against ROSTER and no
+    co-attention kernel launched; then ROSTER_CLI's CLI for one epoch on
+    the saved bench dataset, in a subprocess."""
+    t_phase = time.perf_counter()
+    out = {}
+    for preset, (gathers, tables) in ROSTER.items():
+        tag = f"[roster {preset}]"
+        res = phase_ladder_rung(card, ds, dev, preset, tag, ROSTER_KERNELS,
+                                tables)
+        got = res.pop("launches")["gather_rows"]
+        if got != gathers * TIMED_STEPS:
+            raise AssertionError(f"{tag} gather_rows launched {got} times "
+                                 f"in {TIMED_STEPS} steps; expected "
+                                 f"{gathers} a step")
+        log(f"{tag} gather_rows: {got} launches, {gathers} a step")
+        out[preset] = res
+    run_cli(card, "[roster]", ROSTER_CLI, data_dir)
+    log(f"[roster] {json.dumps(out)}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return out
 
 
 def main() -> int:
@@ -1896,7 +2000,9 @@ def main() -> int:
         data_dir = phase_driver(card, ds, dev, work)
         mark("[eval] and [driver]")
         phase_ladder(card, ds, dev, data_dir)
-    mark("[ladder]")
+        mark("[ladder]")
+        phase_roster(card, ds, dev, data_dir)
+    mark("[roster]")
     kernels = [
         dict(name="gather_rows", route="cuda",
              source="score_tpu_torch/csrc/gather.cu",

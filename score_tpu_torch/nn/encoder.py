@@ -88,8 +88,10 @@ class AttnPool(nn.Module):
     def forward(self, hs, query, mask):
         dt = hs.dtype
         dq = query.shape[-1]
-        # einsum("fq,bcq->bcf", W, query) is query @ W^T
-        q = query @ self.w.to(dt).T                            # [B,C,f]
+        # einsum("fq,bcq->bcf", W, query) is query @ W^T, in the states'
+        # dtype (f32 states of the Caser and SASRec encoders promote a bf16
+        # query, as in the reference)
+        q = query.to(dt) @ self.w.to(dt).T                     # [B,C,f]
         # 1/sqrt(dq) rounded to the activations' dtype, as the reference
         scale = (1.0 / torch.tensor(float(dq), dtype=dt).sqrt()).item()
         if hs.shape[1] == 1:

@@ -1,21 +1,25 @@
-"""The SCoRe model family: the configs0-3 rungs of the preset ladder.
+"""The SCoRe model family (the configs0-3 rungs of the preset ladder), and
+`build_model`, which builds it or one of the baseline roster's archs.
 
-Counterpart of score_tpu/nn/model.py:ScoreModel, for serving and for
-training with uniform or in-batch negatives (`neg_shift`). One module
-covers the rungs through ModelConfig's flags:
+Counterpart of score_tpu/nn/model.py:ScoreModel and of
+score_tpu/train.py:build_model, for serving and for training with uniform
+or in-batch negatives (`neg_shift`). One module covers the rungs through
+ModelConfig's flags:
 
     configs0  sides='user', slot_agg='mean',   seq_pool='last', shared_table
     configs1  sides='dual', slot_agg='mean',   seq_pool='attn'
     configs2  sides='dual', slot_agg='attn',   seq_pool='attn'
     configs3  sides='dual', slot_agg='coattn', seq_pool='attn'
 
-and any other combination of those flags with the GRU encoder (the
-co-attention needs both sides). Submodule and parameter names mirror the
+and any other combination of those flags (the co-attention needs both
+sides), with the GRU, Caser or SASRec sequence encoder (`seq_encoder`
+'gru', 'caser' or 'selfattn'; the roster's gru4rec, caser, sasrec and rrn
+presets are such combinations). Submodule and parameter names mirror the
 flax tree (tables, coattn or slot_attn_u/slot_attn_i, gru_u, gru_i,
 pool_u, pool_i, scorer), and a rung has only the submodules the flax
 model has, so `score_tpu_torch.params` maps one onto the other. The
-baselines (`arch != 'score'`) and the Caser and SASRec encoders raise
-NotImplementedError.
+roster's other archs (`arch` 'mf', 'pop', 'svdpp', 'delf') are in
+`nn.baselines`.
 """
 
 from __future__ import annotations
@@ -34,21 +38,25 @@ from .encoder import GRU, AttnPool, last_pool
 from .scorer import Scorer
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+ARCHS = ("score", "mf", "pop", "svdpp", "delf")
+ENCODERS = ("gru", "caser", "selfattn")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for what the port does not build: the
-    baselines, encoders other than the GRU, compute other than f32 or
-    bf16, and parameters other than f32; ValueError for co-attention on
-    one side, which the reference refuses too."""
-    bad = {k: getattr(cfg, k) for k, v in (("arch", "score"),
-                                            ("seq_encoder", "gru"))
-           if getattr(cfg, k) != v}
-    if bad or cfg.compute_dtype not in _DTYPES:
+    """Raise NotImplementedError for what the port does not build: an
+    arch or sequence encoder the reference does not have, compute other
+    than f32 or bf16, and parameters other than f32; ValueError for
+    co-attention on one side, which the reference refuses too."""
+    if cfg.arch not in ARCHS or cfg.seq_encoder not in ENCODERS:
         raise NotImplementedError(
-            f"score_tpu_torch ports the SCoRe model with the GRU encoder in "
-            f"f32 or bf16 compute only; got {bad or cfg.compute_dtype}")
-    if cfg.slot_agg == "coattn" and cfg.sides != "dual":
+            f"no arch {cfg.arch!r} with encoder {cfg.seq_encoder!r}; the "
+            f"port builds the archs {ARCHS} and the encoders {ENCODERS}")
+    if cfg.compute_dtype not in _DTYPES:
+        raise NotImplementedError(
+            f"score_tpu_torch computes in f32 or bf16 only; got "
+            f"compute_dtype={cfg.compute_dtype!r}")
+    if (cfg.arch == "score" and cfg.slot_agg == "coattn"
+            and cfg.sides != "dual"):
         raise ValueError("co-attention requires both sides (sides='dual')")
     # the master weights are f32: the table-gradient scatter-add takes f32
     if cfg.param_dtype != "float32":
@@ -74,10 +82,11 @@ def check_device(cfg: Config, device) -> None:
     config wider than its kernels take: embed_dim above MAX_WIDE_DIM, or a
     neighbour fan-out above MAX_WIDE_ROWS. The CPU runs the plain versions,
     which have no limit."""
-    if torch.device(device).type != "cuda" or cfg.model.slot_agg != "coattn":
+    m = cfg.model
+    if (torch.device(device).type != "cuda" or m.arch != "score"
+            or m.slot_agg != "coattn"):
         return
-    d, fu, fi = (cfg.model.embed_dim, cfg.data.user_fanout,
-                 cfg.data.item_fanout)
+    d, fu, fi = m.embed_dim, cfg.data.user_fanout, cfg.data.item_fanout
     if d > MAX_WIDE_DIM or max(fu, fi) > MAX_WIDE_ROWS:
         raise NotImplementedError(
             f"the co-attention kernels take embed_dim <= {MAX_WIDE_DIM} and "
@@ -90,6 +99,40 @@ def _nbr_mask(cnt: torch.Tensor, fanout: int,
     """[..., T, k] bool: neighbour j of slot t valid iff j < cnt and t < t*."""
     j = torch.arange(fanout, dtype=cnt.dtype, device=cnt.device)
     return (j < cnt[..., None]) & slot_valid[..., None]
+
+
+def candidates_form(batch: dict, dual: bool) -> dict:
+    """A flat (u, i) batch as the candidates form with C == 1 (the item's
+    history too when the model reads it, `dual`)."""
+    cb = dict(batch, cand=batch["item"][:, None])
+    if dual:
+        cb.update(i_hist=batch["i_hist"][:, None],
+                  i_cnt=batch["i_cnt"][:, None])
+    return cb
+
+
+def build_model(cfg, num_users: int, num_items: int) -> nn.Module:
+    """The model `cfg.arch` names (cfg a Config or its ModelConfig):
+    ScoreModel for 'score', else the baseline arch of `nn.baselines`."""
+    m = getattr(cfg, "model", cfg)
+    check_supported(m)
+    if m.arch == "score":
+        return ScoreModel(m, num_users, num_items)
+    from . import baselines
+    cls = {"mf": baselines.MFModel, "pop": baselines.PopModel,
+           "svdpp": baselines.SVDPPModel,
+           "delf": baselines.DELFModel}[m.arch]
+    return cls(m, num_users, num_items)
+
+
+def _encoder(kind: str, in_dim: int, features: int) -> nn.Module:
+    """The sequence encoder `kind`: xs [B, T, in_dim], mask [B, T] ->
+    [B, T, features]."""
+    if kind == "gru":
+        return GRU(in_dim, features)
+    from .baselines import CaserEncoder, SelfAttnEncoder
+    cls = CaserEncoder if kind == "caser" else SelfAttnEncoder
+    return cls(in_dim, features)
 
 
 class ScoreModel(nn.Module):
@@ -112,9 +155,9 @@ class ScoreModel(nn.Module):
             self.slot_attn_u = SlotAttention(d)
             if self.dual:
                 self.slot_attn_i = SlotAttention(d)
-        self.gru_u = GRU(d, f)
+        self.gru_u = _encoder(cfg.seq_encoder, d, f)
         if self.dual:
-            self.gru_i = GRU(d, f)
+            self.gru_i = _encoder(cfg.seq_encoder, d, f)
         if cfg.seq_pool == "attn":
             self.pool_u = AttnPool(f, d)
             if self.dual:
@@ -124,11 +167,7 @@ class ScoreModel(nn.Module):
 
     def forward(self, batch: dict) -> torch.Tensor:
         """Flat (u, i) pairs: the candidates form with C == 1 -> [B]."""
-        cb = dict(batch, cand=batch["item"][:, None])
-        if self.dual:
-            cb.update(i_hist=batch["i_hist"][:, None],
-                      i_cnt=batch["i_cnt"][:, None])
-        return self.score_candidates(cb)[:, 0]
+        return self.score_candidates(candidates_form(batch, self.dual))[:, 0]
 
     def score_candidates(self, batch: dict,
                          neg_shift: Optional[Sequence[int]] = None
@@ -196,12 +235,14 @@ class ScoreModel(nn.Module):
         return self.scorer(feats)                                 # [B, C]
 
     @staticmethod
-    def _encode(gru: GRU, pool: Optional[AttnPool], c: torch.Tensor,
+    def _encode(gru: nn.Module, pool: Optional[AttnPool], c: torch.Tensor,
                 query: torch.Tensor, sv: torch.Tensor) -> torch.Tensor:
-        """The GRU over the slots of each of the B*Ch sequences c
-        [B, Ch, T, d], then the attention pool with `query` [B, C, dq] or
-        (pool None) the last valid state -> [B, C, f] (or [B, 1, f] for
-        the last state of a shared sequence)."""
+        """The sequence encoder over the slots of each of the B*Ch
+        sequences c [B, Ch, T, d], then the attention pool with `query`
+        [B, C, dq] or (pool None) the last valid state -> [B, C, f] (or
+        [B, 1, f] for the last state of a shared sequence). The GRU
+        computes in c's dtype; the Caser and SASRec encoders in f32, as
+        the reference's flax modules without a dtype do."""
         B, Ch, T, _ = c.shape
         sv_c = sv[:, None].expand(B, Ch, T).reshape(B * Ch, T)
         hs = gru(c.reshape(B * Ch, T, -1), sv_c)                  # [B*Ch,T,f]

@@ -2,11 +2,16 @@
 an optax Adam state and the port's Adam), and a flax-faithful initialiser
 that needs no JAX.
 
-The state_dict keys mirror the flax paths with '.' for '/'. Flax `Dense`
-kernels ([in, out], leaf `kernel`) become torch `Linear` weights
-([out, in], leaf `weight`); every other leaf (tables, Wr/Wtu/Wti, the slot
-attention's W, the GRU's wx/wh/b, the pooling W, Dense biases) keeps its
-name and layout, whichever rung's tree it is.
+The state_dict keys mirror the flax paths with '.' for '/'. Flax `kernel`
+leaves become torch `weight` leaves:
+  * 2-D Dense kernels [in, out] -> Linear weights [out, in];
+  * Conv kernels [w, in, out] (Caser's hconv_*) -> conv1d's [out, in, w];
+  * the attention's query, key and value kernels [in, heads, head_dim]
+    -> [heads, head_dim, in], its out kernel [heads, head_dim, out] ->
+    [out, heads, head_dim].
+Every other leaf (tables, Wr/Wtu/Wti, the slot attention's W, the GRU's
+wx/wh/b, the pooling W, biases, LayerNorm scales, MF's scalar bias) keeps
+its name and layout, whichever model's tree it is.
 """
 
 from __future__ import annotations
@@ -18,8 +23,29 @@ import numpy as np
 import torch
 
 from .config import Config
+from .nn.baselines import CASER_WIDTHS, SELFATTN_HEADS
 from .nn.embed import round_up
 from .nn.model import check_supported, scorer_width
+
+# a 3-D kernel's axes, flax -> torch, by its module's name
+_QKV_TO_TORCH = (1, 2, 0)      # [in, h, hd] -> [h, hd, in]
+_OUT_TO_TORCH = (2, 0, 1)      # [h, hd, out] -> [out, h, hd]
+_CONV_TO_TORCH = (2, 1, 0)     # [w, in, out] -> [out, in, w]
+
+
+def _kernel_axes(path: str, ndim: int):
+    """The permutation that takes the flax kernel of module `path` (dotted)
+    to its torch weight."""
+    if ndim == 2:
+        return (1, 0)
+    module = path.rstrip(".").split(".")[-1]
+    if ndim == 3 and module in ("query", "key", "value"):
+        return _QKV_TO_TORCH
+    if ndim == 3 and module == "out":
+        return _OUT_TO_TORCH
+    if ndim == 3 and module.startswith("hconv_"):
+        return _CONV_TO_TORCH
+    raise ValueError(f"no mapping for the {ndim}-D kernel of {path!r}")
 
 
 def from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
@@ -31,9 +57,11 @@ def from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
             if isinstance(val, Mapping):
                 walk(val, prefix + key + ".")
                 continue
-            arr = torch.from_numpy(np.array(val))
+            arr = (val.clone() if isinstance(val, torch.Tensor)
+                   else torch.from_numpy(np.array(val)))
             if key == "kernel":
-                out[prefix + "weight"] = arr.T.contiguous()
+                out[prefix + "weight"] = arr.permute(
+                    *_kernel_axes(prefix, arr.dim())).contiguous()
             else:
                 out[prefix + key] = arr
     walk(tree, "")
@@ -50,7 +78,8 @@ def to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
             node = node.setdefault(p, {})
         arr = val.detach().cpu()
         if leaf == "weight":
-            leaf, arr = "kernel", arr.T
+            axes = _kernel_axes(".".join(path), arr.dim())
+            leaf, arr = "kernel", arr.permute(*np.argsort(axes))
         node[leaf] = arr.contiguous().numpy()
     return tree
 
@@ -100,23 +129,87 @@ def _lecun_normal(shape, fan_in: int, g: torch.Generator) -> torch.Tensor:
                                        -2 * std, 2 * std, generator=g)
 
 
+def _dense(fan_in: int, out: int, g: torch.Generator) -> dict:
+    """A flax Dense's leaves: lecun-normal kernel [in, out], zero bias."""
+    return {"kernel": _lecun_normal((fan_in, out), fan_in, g),
+            "bias": torch.zeros(out)}
+
+
+def _layer_norm(f: int) -> dict:
+    return {"scale": torch.ones(f), "bias": torch.zeros(f)}
+
+
+def _encoder_tree(kind: str, d: int, f: int, g: torch.Generator) -> dict:
+    """The flax tree of a Caser or SASRec encoder from `d` to `f` features
+    (lecun-normal kernels, fan-in over every contracted axis; zero biases;
+    LayerNorm scales 1)."""
+    if kind == "caser":
+        tree = {f"hconv_{w}": {"kernel": _lecun_normal((w, d, f), w * d, g),
+                               "bias": torch.zeros(f)}
+                for w in CASER_WIDTHS}
+        tree["vproj"] = _dense(d, f, g)
+        tree["out"] = _dense((len(CASER_WIDTHS) + 1) * f, f, g)
+        return tree
+    h = SELFATTN_HEADS
+    mha = {name: {"kernel": _lecun_normal((f, f), f, g).reshape(f, h, -1),
+                  "bias": torch.zeros(h, f // h)}
+           for name in ("query", "key", "value")}
+    mha["out"] = {"kernel": _lecun_normal((f, f), f, g).reshape(h, -1, f),
+                  "bias": torch.zeros(f)}
+    return {"in_proj": _dense(d, f, g), "ln1": _layer_norm(f), "mha": mha,
+            "ln2": _layer_norm(f), "ff1": _dense(f, 2 * f, g),
+            "ff2": _dense(2 * f, f, g)}
+
+
+def _baseline_tree(m, num_users: int, num_items: int, table,
+                   g: torch.Generator) -> dict:
+    """The flax tree of baseline arch m.arch (score_tpu/nn/baselines.py):
+    EmbeddingTables (a side left out keeps its 64-row table of the pad
+    id) of width d or 1, MF's zero scalar bias, DELF's Dense layers."""
+    d, h = m.embed_dim, m.hidden_dim
+
+    def tables(users=True, items=True, dim=d, shared=False):
+        if shared:
+            return {"table": table(1 + num_items + num_users, dim)}
+        return {"user_table": table(1 + (num_users if users else 0), dim),
+                "item_table": table(1 + (num_items if items else 0), dim)}
+    if m.arch == "pop":
+        return {"item_bias": tables(users=False, dim=1)}
+    tree = {"tables": tables(shared=m.shared_table)}
+    if m.arch == "delf":
+        tree["hist_tables"] = tables()
+        for k in ("ee", "eq", "pe", "pq"):
+            tree[f"pair_{k}"] = _dense(2 * d, h, g)
+        tree["head"] = _dense(4 * h, 1, g)
+        return tree
+    if m.arch == "svdpp":
+        tree["implicit_tables"] = tables(users=False)
+    tree["user_bias"] = tables(items=False, dim=1)
+    tree["item_bias"] = tables(users=False, dim=1)
+    tree["bias"] = torch.zeros(())
+    return tree
+
+
 def init_params(cfg: Config, num_users: int, num_items: int,
                 generator: torch.Generator) -> Dict[str, torch.Tensor]:
-    """Fresh f32 weights of the rung `cfg.model` names, drawn as flax
-    draws them: normal(0.01) tables, lecun-normal GRU and Dense kernels,
-    zero biases and zero attention weights (Wr, Wtu, Wti, the slot
-    attention's and the pooling's W). Only the submodules the rung has
-    get weights, as in the flax tree."""
+    """Fresh f32 weights of the model `cfg.model` names, drawn as flax
+    draws them: normal(0.01) tables, lecun-normal GRU, Dense, Conv and
+    attention kernels, zero biases, LayerNorm scales 1, and zero attention
+    weights (Wr, Wtu, Wti, the slot attention's and the pooling's W). Only
+    the submodules the model has get weights, as in the flax tree."""
     m = cfg.model
     check_supported(m)
     d, f = m.embed_dim, m.hidden_dim
     dual = m.sides == "dual"
     sides = ("u", "i") if dual else ("u",)
     g = generator
-    sd: Dict[str, torch.Tensor] = {}
 
-    def table(rows):
-        return torch.randn(round_up(rows), d, generator=g) * 0.01
+    def table(rows, dim=d):
+        return torch.randn(round_up(rows), dim, generator=g) * 0.01
+    if m.arch != "score":
+        return {k: v.contiguous() for k, v in from_flax(
+            _baseline_tree(m, num_users, num_items, table, g)).items()}
+    sd: Dict[str, torch.Tensor] = {}
     if m.shared_table:
         sd["tables.table"] = table(1 + num_items + num_users)
     else:
@@ -129,6 +222,10 @@ def init_params(cfg: Config, num_users: int, num_items: int,
         for s in sides:
             sd[f"slot_attn_{s}.w"] = torch.zeros(d, d)
     for s in sides:
+        if m.seq_encoder != "gru":
+            sd.update(from_flax({f"gru_{s}": _encoder_tree(
+                m.seq_encoder, d, f, g)}))
+            continue
         sd[f"gru_{s}.wx"] = _lecun_normal((d, 3 * f), d, g)
         sd[f"gru_{s}.wh"] = _lecun_normal((f, 3 * f), f, g)
         sd[f"gru_{s}.b"] = torch.zeros(3 * f)

@@ -1,5 +1,5 @@
-"""Online scoring service over the SCoRe model (configs0-3) and the device
-graph.
+"""Online scoring service over a model of the preset ladder (configs0-3)
+or of the baseline roster, and the device graph.
 
 Counterpart of score_tpu/serve.py:ScoringService (score, score_batch,
 topk, topk_batch, from_checkpoint):
@@ -26,7 +26,7 @@ import torch
 from .config import Config
 from .data.schema import Dataset
 from .graph import DeviceGraph, device_graph, gather_candidate_batch
-from .nn.model import ScoreModel, check_config, check_device
+from .nn.model import build_model, check_config, check_device
 from .params import cast_tables
 
 _BUCKETS = (1, 16, 64, 256, 1024, 4096)
@@ -56,7 +56,7 @@ class ScoringService:
         self.num_users = ds.num_users
         self.num_items = ds.num_items
         self.graph: DeviceGraph = device_graph(ds.graph, self.device)
-        self.model = ScoreModel(cfg.model, ds.num_users, ds.num_items)
+        self.model = build_model(cfg, ds.num_users, ds.num_items)
         sd = cast_tables(state_dict, cfg.model.compute_dtype)
         self.model.load_state_dict(
             {k: v.to(self.device) for k, v in sd.items()}, assign=True)

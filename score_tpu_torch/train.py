@@ -1,14 +1,18 @@
-"""Training: the train step of the configs0-3 rungs, a K-step loop,
-streaming eval, and the train/eval driver with checkpoints and its CLI.
+"""Training: the train step of the configs0-3 rungs and of the baseline
+roster, a K-step loop, streaming eval, and the train/eval driver with
+checkpoints and its CLI.
 
-Counterpart of score_tpu/train.py (make_optimizer, item_importance_weights,
-_table_l2, _resample_collisions, the train step of _make_train_step_fn with
-uniform or in-batch negatives and stride-K table updates, the train loop,
-make_eval_step, _eval_accum, evaluate, train and main): uniform negatives
+Counterpart of score_tpu/train.py (build_model, make_optimizer,
+item_importance_weights, _table_l2, _resample_collisions, the train step
+of _make_train_step_fn with uniform or in-batch negatives and stride-K
+table updates, the train loop, make_eval_step, _eval_accum, evaluate,
+train and main): uniform negatives
 with collision resampling (every preset's default) or in-batch
 (importance-weighted) ones, Adam at a constant learning rate,
-`table_update_every` and `table_lr_boost`; any rung of the preset ladder
-and any co-attention pool:
+`table_update_every` and `table_lr_boost`; any rung of the preset ladder,
+any co-attention pool, and the baseline roster (the eight `baseline_*`
+presets: MF, popularity, SVD++, DELF, and GRU4Rec, Caser, SASRec and RRN
+as ScoreModel's flag sets), each model built by `build_model`:
 
     out = train(cfg, ds, device="cuda")    # epochs, val, early stop, test
 
@@ -30,8 +34,9 @@ never waits for the device: metrics come back as device tensors.
 
 Left out, and refused where a config asks for them: neighbour
 re-sampling, optimizers other than Adam, learning-rate schedules, scorer
-dropout, sharded layouts, non-f32 parameters, the baselines and the Caser
-and SASRec encoders.
+dropout, sharded layouts and non-f32 parameters. In-batch negatives on a
+baseline arch raise ValueError, as the reference's step does: those archs
+score the positive alone.
 """
 
 from __future__ import annotations
@@ -54,7 +59,7 @@ from .data.schema import Dataset
 from .graph import DeviceGraph, device_graph, gather_candidate_batch
 from .metrics import (F16_BINS, auc, hist_auc, rank_sum_keys, ranking_sums,
                       score_hists)
-from .nn.model import ScoreModel, check_config, check_device
+from .nn.model import build_model, check_config, check_device
 from .nn.scorer import bce_loss
 from .params import cast_tables, init_params
 
@@ -116,8 +121,10 @@ class Adam:
     def step(self, names: Sequence[str],
              grads: Sequence[torch.Tensor]) -> None:
         """Update the parameters `names` with `grads`; the count advances
-        once."""
+        once (also with no parameter to update)."""
         self.count += 1
+        if not names:
+            return
         bc1 = self._bias_correction(self.b1)
         bc2 = self._bias_correction(self.b2)
         grads = list(grads)
@@ -169,7 +176,7 @@ class TrainState:
     negatives a step is not given."""
 
     cfg: Config
-    model: ScoreModel
+    model: torch.nn.Module
     opt: Adam
     generator: torch.Generator
     step: int = 0
@@ -180,12 +187,20 @@ class TrainState:
 
 
 def check_trainable(cfg: Config) -> None:
-    """Raise NotImplementedError for what the port does not train yet."""
+    """Raise NotImplementedError for what the port does not train yet, and
+    ValueError for in-batch negatives on a baseline arch: its
+    score_candidates ignores the shifts and scores the positive alone, so
+    its [B, 1] logits cannot meet [B, 1 + k] labels (the reference's step
+    raises on the same shapes)."""
     check_config(cfg)
     if cfg.data.neighbor_resample:
         raise NotImplementedError("neighbor_resample is not ported yet")
     if cfg.model.dropout > 0:
         raise NotImplementedError("scorer dropout is not ported yet")
+    if cfg.model.arch != "score" and cfg.data.train_neg_mode != "uniform":
+        raise ValueError(
+            f"arch {cfg.model.arch!r} scores no in-batch negatives "
+            f"(train_neg_mode={cfg.data.train_neg_mode!r}); use 'uniform'")
 
 
 def init_state(cfg: Config, num_users: int, num_items: int,
@@ -198,7 +213,7 @@ def init_state(cfg: Config, num_users: int, num_items: int,
     stride-K table updates fall on the same steps."""
     check_trainable(cfg)
     check_device(cfg, device)
-    model = ScoreModel(cfg.model, num_users, num_items)
+    model = build_model(cfg, num_users, num_items)
     model.load_state_dict({k: v.to(device=device, dtype=torch.float32)
                            for k, v in state_dict.items()}, assign=True)
     model.train()
@@ -333,8 +348,13 @@ def train_step(state: TrainState, graph: DeviceGraph, batch: Mapping,
     if full and cfg.train.l2_emb > 0:
         total = loss + cfg.train.l2_emb * table_l2(model)
     params = dict(model.named_parameters())
-    grads = torch.autograd.grad(total, [params[n] for n in names])
-    state.opt.step(names, grads)
+    # a parameter the step does not reach (a bias table's other side with
+    # no L2; every table of the popularity floor on a dense step) gets a
+    # zero gradient, as optax gives it; the count advances all the same
+    grads = (torch.autograd.grad(total, [params[n] for n in names],
+                                 allow_unused=True) if names else ())
+    state.opt.step(names, [torch.zeros_like(params[n]) if g is None else g
+                           for n, g in zip(names, grads)])
     state.step += 1
     out = {"loss": loss.detach()}
     logits = logits.detach()
@@ -373,7 +393,7 @@ def train_loop(state: TrainState, graph: DeviceGraph,
     return state, {"loss": torch.stack(losses), "batch_auc": batch_auc[None]}
 
 
-def make_eval_step(model: ScoreModel) -> Callable:
+def make_eval_step(model: torch.nn.Module) -> Callable:
     """eval_step(graph, batch) scores each positive against its fixed
     negatives: batch {user, item, slot [B], neg [B, N]} -> logits
     [B, 1 + N], the positive first. It runs an inference copy of `model`
@@ -382,7 +402,7 @@ def make_eval_step(model: ScoreModel) -> Callable:
     and in bf16 alike, later training does not reach the copy:
     `eval_step.refresh(model_or_state_dict)` copies the current weights
     into it (tables cast the same way), so one step serves a whole run."""
-    em = ScoreModel(model.cfg, model.num_users, model.num_items)
+    em = build_model(model.cfg, model.num_users, model.num_items)
     sd = cast_tables(model.state_dict(), model.cfg.compute_dtype)
     em.load_state_dict({k: v.detach().clone() for k, v in sd.items()},
                        assign=True)

@@ -894,3 +894,116 @@ def test_shared_table_gather_and_scatter(cuda):
     want = torch.zeros_like(tables.table).index_add_(0, rows, du)
     want.index_add_(0, items.reshape(-1).long(), di.reshape(-1, d))
     assert torch.equal(grad, want)    # integer-valued sums: exact
+
+
+@pytest.mark.parametrize("W", [1, 16])
+def test_roster_tables_gather_and_scatter(cuda, W):
+    """The roster's narrow tables as its models look them up: a bias table
+    one element wide (4-byte f32 rows; 2-byte rows once serving casts it
+    to bf16) and the presets' 16-wide tables. Users [4096] and items
+    [4096, 2] ([positive | negative]) gathered by the kernel against
+    index_select, the f32 tables' gradients by the scatter-add kernel
+    against index_add (integer-valued sums: exact), and the bf16 cast's
+    gather bit-equal to the plain version's."""
+    from score_tpu_torch.nn.embed import EmbeddingTables
+    U, I = 50000, 90553
+    tables = EmbeddingTables(U, I, W).to(cuda)
+    rng = np.random.default_rng(W)
+    with torch.no_grad():
+        for t in (tables.user_table, tables.item_table):
+            t.copy_(torch.from_numpy(rng.normal(size=t.shape).astype(
+                np.float32)))
+    users = torch.from_numpy(rng.integers(0, U + 1, (4096,)).astype(
+        np.int32)).to(cuda)
+    items = torch.from_numpy(rng.integers(0, I + 1, (4096, 2)).astype(
+        np.int32)).to(cuda)
+    before = (tgather.gather_rows.launches, tgather.scatter_add_rows.launches)
+    (eu,), (ei,) = tables.lookup([users], [items])
+    assert torch.equal(eu, tgather.gather_rows_plain(tables.user_table,
+                                                     users))
+    assert torch.equal(ei, tgather.gather_rows_plain(tables.item_table,
+                                                     items))
+    du = torch.from_numpy(rng.integers(-8, 9, (4096, W)).astype(
+        np.float32)).to(cuda)
+    di = torch.from_numpy(rng.integers(-8, 9, (4096, 2, W)).astype(
+        np.float32)).to(cuda)
+    gu, gi = torch.autograd.grad((eu * du).sum() + (ei * di).sum(),
+                                 [tables.user_table, tables.item_table])
+    torch.cuda.synchronize()
+    assert (tgather.gather_rows.launches,
+            tgather.scatter_add_rows.launches) == (before[0] + 2,
+                                                   before[1] + 2)
+    assert torch.equal(gu, torch.zeros_like(gu).index_add_(
+        0, users.long(), du))
+    assert torch.equal(gi, torch.zeros_like(gi).index_add_(
+        0, items.reshape(-1).long(), di.reshape(-1, W)))
+    served = tables.item_table.detach().bfloat16()
+    ids = torch.from_numpy(rng.integers(0, I + 1, (16, 4096)).astype(
+        np.int32)).to(cuda)
+    assert torch.equal(tgather.gather_rows(served, ids),
+                       tgather.gather_rows_plain(served, ids))
+
+
+@pytest.mark.parametrize("name", ["baseline_pop", "baseline_mf",
+                                  "baseline_svdpp", "baseline_delf",
+                                  "baseline_gru4rec", "baseline_caser",
+                                  "baseline_sasrec", "baseline_rrn"])
+def test_roster_forward_and_step_on_card_match_cpu(cuda, name):
+    """Each baseline preset at its own widths, f32: the candidates form
+    (1 + 20 candidates) and then one full step (tables included) with its
+    uniform negatives, on the card and on the CPU from the same weights
+    (every zero-initialised leaf made non-zero), batch and raw negatives:
+    the scores to 1e-4, the loss to 1e-5 and the parameters to rtol 1e-4
+    / atol 1e-5, as test_uniform_step_on_card_matches_cpu holds the
+    ladder; no co-attention kernel launches."""
+    from score_tpu_torch.config import PRESETS
+    from score_tpu_torch.data.pipeline import TargetIterator
+    from score_tpu_torch.graph import device_graph, gather_candidate_batch
+    from score_tpu_torch.params import init_params
+    from score_tpu_torch.train import draw_negatives, init_state, train_step
+    ds = _small_dataset()
+    cfg = PRESETS[name]()
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, batch_size=256))
+    gen = torch.Generator().manual_seed(0)
+    sd = init_params(cfg, ds.num_users, ds.num_items, gen)
+    for k, v in sd.items():
+        if not v.any():
+            sd[k] = torch.randn(v.shape, generator=gen) * 0.3
+    batch = next(TargetIterator(ds.train, 256))
+    negs = draw_negatives(gen, 256, cfg.data.num_train_neg, ds.num_items)
+    cand = torch.cat([torch.from_numpy(batch["item"][:64, None]),
+                      torch.randint(1, ds.num_items + 1, (64, 20),
+                                    generator=gen, dtype=torch.int32)], 1)
+    pair = (tpair.cross_coattn_pair.launches,
+            tcand.cross_coattn_cand.launches)
+    out = {}
+    for device in (cuda, torch.device("cpu")):
+        # a state on the CPU trains its weights in place: give it a copy
+        st = init_state(cfg, ds.num_users, ds.num_items,
+                        {k: v.clone() for k, v in sd.items()}, device=device)
+        graph = device_graph(ds.graph, device)
+        with torch.no_grad():
+            scores = st.model.score_candidates(gather_candidate_batch(
+                graph, *(torch.from_numpy(batch[k][:64]).to(device)
+                         if k != "item" else cand.to(device)
+                         for k in ("user", "item", "slot")),
+                item_side=st.model.dual))
+        st, m = train_step(st, graph, batch, negatives=negs)
+        out[device.type] = (scores.cpu(), m["loss"].item(), {
+            k: v.detach().cpu() for k, v in st.model.named_parameters()})
+    assert pair == (tpair.cross_coattn_pair.launches,
+                    tcand.cross_coattn_cand.launches)
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-5,
+                               atol=1e-6)
+    for k, want in out["cpu"][2].items():
+        if k.endswith("mha.key.bias"):
+            # SASRec's key bias adds one constant to a query's logits, which
+            # the softmax cancels: its gradient is zero in exact arithmetic,
+            # roundoff on each device; each stays within one Adam step
+            for got in (out["cuda"][2][k], want):
+                assert (got - sd[k]).abs().max() <= cfg.train.learning_rate
+            continue
+        torch.testing.assert_close(out["cuda"][2][k], want, rtol=1e-4,
+                                   atol=1e-5, msg=k)

@@ -3,8 +3,9 @@ host, and without the JAX package: in a fresh interpreter that refuses to
 import jax, flax, optax, orbax, pandas or anything of score_tpu, build a
 dataset with the port's own host layer, score one request and take two
 train steps on the CPU, with the sum pool and with the max pool, evaluate
-the validation split, and run the training CLI from a raw CSV log to its
-test line (configs3, and configs0 with its preset's uniform negatives).
+the validation split, serve and train a baseline arch (DELF), and run the
+training CLI from a raw CSV log to its test line (configs3, and configs0
+with its preset's uniform negatives).
 And the port's copies of that host layer (config presets, the synthetic
 generator, dataset prep and its CSV reader, the batch iterator) give
 what the JAX package's give."""
@@ -92,6 +93,23 @@ for pool in ("sum", "max"):
 metrics = evaluate(make_eval_step(state.model), graph, ds.val, batch_size=16)
 assert 0.0 <= metrics["auc"] <= 1.0 and "ndcg@10" in metrics, metrics
 
+# a baseline arch of the roster (DELF: both sides' histories), served and
+# trained with its preset's uniform negatives
+from score_tpu_torch.config import PRESETS
+
+bcfg = PRESETS["baseline_delf"]()
+bsd = init_params(bcfg, ds.num_users, ds.num_items,
+                  torch.Generator().manual_seed(0))
+bscores = ScoringService(bcfg, ds, bsd, device="cpu").score(1, [1, 2, 3])
+assert bscores.shape == (3,) and np.isfinite(bscores).all(), bscores
+bstate = init_state(bcfg, ds.num_users, ds.num_items, bsd, device="cpu")
+it = TargetIterator(ds.train, 32, seed=0)
+blosses = []
+for _ in range(2):
+    bstate, m = train_step(bstate, graph, next(it))
+    blosses.append(m["loss"].item())
+assert bstate.step == 2 and np.isfinite(blosses).all(), blosses
+
 # the CLI, from a raw log at its default path (under $TMPDIR) to the test line
 import contextlib
 import io
@@ -121,7 +139,7 @@ assert os.path.exists(os.path.join(work, "ck", "best.pt"))
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not loaded, loaded
 print("SERVED", scores.tolist(), "TRAINED", losses, "EVALUATED", metrics,
-      "CLI", test_line[0])
+      "BASELINE", bscores.tolist(), blosses, "CLI", test_line[0])
 """
 
 
@@ -179,6 +197,7 @@ def test_port_serves_and_trains_without_jax(tmp_path):
     assert proc.stdout.startswith("SERVED"), proc.stdout
     assert "TRAINED" in proc.stdout, proc.stdout
     assert "EVALUATED" in proc.stdout, proc.stdout
+    assert "BASELINE" in proc.stdout, proc.stdout
     assert "CLI test: auc" in proc.stdout, proc.stdout
 
 

@@ -295,8 +295,9 @@ def test_table_lr_boost_scales_table_updates_only(tiny_dataset):
             torch.testing.assert_close(db, du, rtol=1e-6, atol=1e-8)
 
 
-@pytest.mark.parametrize("over", [dict(model=dict(seq_encoder="caser")),
-                                  dict(model=dict(arch="mf")),
+@pytest.mark.parametrize("over", [dict(train=dict(warmup_steps=10)),
+                                  dict(model=dict(arch="mf"),
+                                       data=dict(neighbor_resample=True)),
                                   dict(data=dict(neighbor_resample=True)),
                                   dict(model=dict(dropout=0.1)),
                                   dict(train=dict(optimizer="sgd")),
