@@ -133,9 +133,27 @@ fails or no CUDA device is present.
    hold the gather and scatter-add to their plain versions at the
    roster's widths: a [rows, 1] bias table in f32 (and, gathered, in
    bf16) and a 16-wide table.
+9. The trainer ([trainer]): configs3 (sum pool, in-batch IW) at the bench
+   width with adamw (wd 1e-4), adagrad (lr 1e-2), sgd (lr 0.5), adam
+   with a 10-step warmup and with warmup 5 + cosine over 53 steps, then
+   with scorer dropout 0.1; each as phase 7 runs a rung (3 warm-up steps,
+   in which the tables change on steps 0 and 2 unless the scheduled lr
+   is 0; 50 counted steps in which the loss must fall, the sum pool's
+   kernels counted; a val, a profile, 3 small f32 steps card against CPU,
+   with host-made masks for dropout). Dropout: two evals bit-equal, the
+   first hidden layer's dropped share within 0.1 +- 0.01, and
+   `profiling.timed` of a step. Then the same events built at a stored
+   fan-out of 20 and re-sampled to n=m=10 each step, with the preset's
+   uniform negatives and with in-batch IW: a step gathers int32 [*, 180]
+   adjacency rows, each sample lies in its row's valid prefix with no
+   position twice and counts min(cnt, 10), the re-sample's device ms, a
+   val at the stored width, 3 small steps card against CPU from the same
+   keys. Last, `debug.checked_lookup` on the card raises on an
+   out-of-range id. Phase 2 holds the gather to its plain version at the
+   stored width too ([90560,180] ids [4096,2], [50048,180] ids [4096]).
 
-The [roster] summary line gives each preset's step ms, kernels a step,
-idle share and val AUC. The line before the last lists each kernel with
+The [roster] and [trainer] summary lines give each run's step ms,
+kernels a step, idle share and val AUC. The line before the last lists each kernel with
 its launches in the
 training run of its path (the sum-pool run for the gather, scatter-add and
 candidates kernels, the mean-pool run for the per-pair kernels), its
@@ -173,6 +191,7 @@ BATCH = 4096                          # bench.py's training batch
 # configs0's shared table on that dataset: round_up(1 + 90,553 + 50,000)
 SHARED_ROWS = 140608
 WARMUP_STEPS, TIMED_STEPS, MAX_POOL_STEPS = 3, 50, 10
+STORED_FAN = 20                       # [trainer]'s re-sampling dataset
 EVAL_TARGETS, EVAL_CPU_TARGETS, EVAL_BATCH = 8192, 512, 256
 F32_TOL = 1e-4
 BF16_TOL = 2e-2
@@ -403,6 +422,15 @@ def gather_cases(gen, dev) -> list:
         ("f32 [90560,16] ids [4096,9,10] (roster presets' d=16)",
          torch.randn(90560, 16, generator=gen, device=dev),
          (BATCH, T, FAN)),
+        # re-sampling gathers the stored fan-out (20): the item histories
+        # of [positive | negative] and the user histories
+        ("int32 [90560,180] ids [4096,2] (stored fan-out 20, item "
+         "histories)",
+         torch.randint(0, 1 << 30, (90560, T * STORED_FAN), generator=gen,
+                       device=dev, dtype=torch.int32), (BATCH, 2)),
+        ("int32 [50048,180] ids [4096] (stored fan-out 20, user histories)",
+         torch.randint(0, 1 << 30, (50048, T * STORED_FAN), generator=gen,
+                       device=dev, dtype=torch.int32), (BATCH,)),
     ]
 
 
@@ -1068,17 +1096,19 @@ def phase_coattn_wide(card: str, dev, gen) -> dict:
 
 # --- the dataset and the configuration ---------------------------------------
 
-def bench_dataset():
+def bench_dataset(fanout: int = FAN, tag: str = "[data]"):
+    """The synthetic Taobao-scale events built into a dataset that stores
+    `fanout` neighbours a slot (the same events and splits at any)."""
     from score_tpu_torch.data import synth
     from score_tpu_torch.data.prep_common import build_dataset
     t0 = time.perf_counter()
     user, item, ts = synth.synth_events(USERS, ITEMS, EVENTS, num_slots=T,
                                         seed=SEED)
-    ds = build_dataset(user, item, ts, num_slots=T, user_fanout=FAN,
-                       item_fanout=FAN, num_eval_neg=100, min_user=3,
+    ds = build_dataset(user, item, ts, num_slots=T, user_fanout=fanout,
+                       item_fanout=fanout, num_eval_neg=100, min_user=3,
                        min_item=3, seed=SEED, dataset_name="bench-taobao")
-    log(f"[data] {ds.num_users} users, {ds.num_items} items, "
-        f"{len(ds.train)} train targets, built in "
+    log(f"{tag} {ds.num_users} users, {ds.num_items} items, "
+        f"{len(ds.train)} train targets, stored fan-out {fanout}, built in "
         f"{time.perf_counter() - t0:.1f} s")
     return ds
 
@@ -1347,7 +1377,9 @@ def _train_run(card: str, state, graph, batches, steps: int, tag: str,
                want: set, full: bool = True, neg_iw=None, negatives=None,
                tables: int = 0):
     """Warm-up steps, in which the tables must change on steps 0 and 2
-    only; then `steps` steps through train_loop with the launches counted
+    only (not on a step whose scheduled learning rate is 0, as a warmup's
+    first is); then `steps` steps through train_loop with the launches
+    counted
     (the kernels in `want` and no other), in which the loss must stay
     finite and, when `full`, fall. `negatives`: the raw uniform draws for
     each batch; without them each step's in-batch shifts come from
@@ -1358,6 +1390,7 @@ def _train_run(card: str, state, graph, batches, steps: int, tag: str,
     losses, aucs = [], []
     for j in range(WARMUP_STEPS):
         before = _tables(state)
+        moves = j % 2 == 0 and state.opt.learning_rate() > 0
         state, m = train_step(
             state, graph, batches[j], neg_iw=neg_iw,
             negatives=None if negatives is None else negatives[j])
@@ -1365,10 +1398,10 @@ def _train_run(card: str, state, graph, batches, steps: int, tag: str,
         aucs.append(round(m["batch_auc"].item(), 5))
         after = dict(state.model.named_parameters())
         changed = any(not torch.equal(v, after[k]) for k, v in before.items())
-        if changed != (j % 2 == 0):
+        if changed != moves:
             raise AssertionError(f"{tag} step {j}: tables changed={changed}")
-    log(f"{tag} warm-up: tables changed on steps 0 and 2 only; batch_auc "
-        f"{aucs}")
+    log(f"{tag} warm-up: tables changed on steps 0 and 2 only (where the "
+        f"learning rate is not 0); batch_auc {aucs}")
 
     # the training run whose launches the counters report
     timed = slice(WARMUP_STEPS, WARMUP_STEPS + steps)
@@ -1450,13 +1483,16 @@ def phase_training_vs_cpu(ds, pool: str = "sum",
 
 
 def steps_vs_cpu(ds, cfg, tag: str, devices=("cuda", "cpu"), shifts=None,
-                 negatives=None) -> list:
+                 negatives=None, dropout_masks=None,
+                 resample_keys=None) -> list:
     """3 steps of `cfg`, f32, batch 256, on the card and on the CPU from
     the same weights (the zero-initialised attention weights made non-zero
     and the tables widened as `random_weights` does: at their init scales
     the attention scores are near 0, the softmaxes near uniform, and every
     co-attention pool gives the same losses), batches and in-batch shifts
-    or raw uniform negatives. Returns the first device's losses."""
+    or raw uniform negatives, and each step's dropout masks and
+    re-sampling keys when given (host tensors). Returns the first
+    device's losses."""
     from score_tpu_torch.graph import device_graph
     from score_tpu_torch.params import init_params
     from score_tpu_torch.train import (init_state, item_importance_weights,
@@ -1479,9 +1515,17 @@ def steps_vs_cpu(ds, cfg, tag: str, devices=("cuda", "cpu"), shifts=None,
         graph = device_graph(ds.graph, device)
         losses = []
         for j, b in enumerate(batches):
+            extra = {}
+            if dropout_masks is not None:
+                extra["dropout_masks"] = [x.to(device)
+                                          for x in dropout_masks[j]]
+            if resample_keys is not None:
+                extra["resample_keys"] = [x.to(device)
+                                          for x in resample_keys[j]]
             state, m = train_step(
                 state, graph, b, shifts and shifts[j], neg_iw.to(device),
-                negatives=None if negatives is None else negatives[j])
+                negatives=None if negatives is None else negatives[j],
+                **extra)
             losses.append(m["loss"].item())
         out[device] = (losses, {k: v.detach().cpu() for k, v in
                                 state.model.named_parameters()})
@@ -1957,6 +2001,277 @@ def phase_roster(card: str, ds, dev, data_dir: str) -> dict:
     return out
 
 
+# --- phase 9: the trainer's optimizers, schedules, dropout, re-sampling -----
+
+# configs3 (sum pool, in-batch IW) at the bench width with each optimizer
+# and schedule beside phase 4's Adam at a constant rate
+TRAINER_RUNS = {"adamw": dict(optimizer="adamw", weight_decay=1e-4),
+                "adagrad": dict(optimizer="adagrad", learning_rate=1e-2),
+                "sgd": dict(optimizer="sgd", learning_rate=0.5),
+                "adam warmup": dict(warmup_steps=10),
+                "adam cosine": dict(lr_schedule="cosine", warmup_steps=5,
+                                    decay_steps=53)}
+DROPOUT = 0.1
+DROPOUT_SHARE_TOL = 0.01
+
+
+def trainer_config(dtype: str, width: bool = True, neg: str = "inbatch_iw",
+                   train: dict = (), model: dict = (), data: dict = ()):
+    """configs3 (sum pool) at the bench width (or its own with
+    width=False) with negatives `neg` ('uniform': the preset's) and the
+    given overrides of its train, model and data sections."""
+    cfg = ladder_config("configs3", dtype, width)
+    return cfg.replace(
+        train=dataclasses.replace(cfg.train, **dict(train)),
+        model=dataclasses.replace(cfg.model, **dict(model)),
+        data=dataclasses.replace(cfg.data, train_neg_mode=neg, **dict(data)))
+
+
+def _trainer_run(card, ds, dev, tag: str, cfg, negatives: bool = False,
+                 graph=None) -> tuple:
+    """`_train_run`'s warm-up and 50 counted steps of `cfg` (the loss must
+    fall; the sum pool's kernels, one scatter-add a table a table-update
+    step), a val on EVAL_TARGETS targets at the graph's stored fan-out
+    (its launches counted: the sum pool's serving kernels) and a profile
+    window. Returns the summary, the state, the graph, the batches and
+    the negatives' importance weights."""
+    from score_tpu_torch.graph import device_graph
+    from score_tpu_torch.params import init_params
+    from score_tpu_torch.train import (draw_negatives, evaluate, init_state,
+                                       item_importance_weights,
+                                       make_eval_step)
+    sd = init_params(cfg, ds.num_users, ds.num_items,
+                     torch.Generator().manual_seed(SEED))
+    state = init_state(cfg, ds.num_users, ds.num_items, sd, device=dev,
+                       steps_per_epoch=len(ds.train) // BATCH)
+    graph = graph or device_graph(ds.graph, dev)
+    batches = _device_batches(ds, WARMUP_STEPS + TIMED_STEPS + 6, BATCH,
+                              dev)
+    neg_iw = negs = None
+    if negatives:
+        negs = torch.stack([draw_negatives(state.generator, BATCH,
+                                           cfg.data.num_train_neg,
+                                           ds.num_items)
+                            for _ in batches]).to(dev)
+    else:
+        neg_iw = torch.from_numpy(
+            item_importance_weights(ds.train, ds.num_items)).to(dev)
+    state, launches, ev_ms = _train_run(
+        card, state, graph, batches, TIMED_STEPS, tag, TRAIN_KERNELS["sum"],
+        neg_iw=neg_iw, negatives=negs)
+    fns = reset_counts()
+    t0 = time.perf_counter()
+    val = evaluate(make_eval_step(state.model), graph, ds.val,
+                   max_targets=EVAL_TARGETS)
+    val_s = time.perf_counter() - t0
+    check_launches(f"{tag} val", {k: fn.launches for k, fn in fns.items()},
+                   SERVE_KERNELS["sum"])
+    if not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in val.values()):
+        raise AssertionError(f"{tag} val metrics out of range: {val}")
+    log(f"{tag} val after {WARMUP_STEPS + TIMED_STEPS} steps, "
+        f"{EVAL_TARGETS} targets at the stored fan-out "
+        f"{graph.u2i.shape[-1]}: auc {val['auc']:.4f} ndcg@10 "
+        f"{val['ndcg@10']:.4f} in {val_s:.3f} s [{card}]")
+    prof = _profile(state, graph, batches[-6:], neg_iw, card, ev_ms, tag,
+                    negatives=None if negs is None else negs[-6:])
+    out = dict(step_ms=ev_ms, val_auc=val["auc"], **prof)
+    return out, state, graph, batches, neg_iw
+
+
+def _first_layer_dropped_share(state, graph, batch, neg_iw) -> float:
+    """The share of the first hidden layer's non-zero activations that one
+    training step's dropout zeroes (read at the scorer's first _drop)."""
+    from score_tpu_torch.train import train_step
+    scorer = state.model.scorer
+    seen = []
+
+    def spy(x, mask, generator):
+        y = type(scorer)._drop(scorer, x, mask, generator)
+        if not seen:
+            live = x != 0
+            seen.append(((y == 0) & live).sum().item() / live.sum().item())
+        return y
+    scorer._drop = spy
+    try:
+        train_step(state, graph, batch, neg_iw=neg_iw, with_auc=False)
+    finally:
+        del scorer._drop
+    return seen[0]
+
+
+def _check_resampled(tag: str, cfg, graph, batch, dev) -> float:
+    """On one real batch on the card: the step's re-sample (its keys drawn
+    from the step's generator) takes each row's sample from the row's
+    valid prefix, no position twice, with counts min(cnt, k); the same
+    keys applied to the positions give the sample's ids. Returns the
+    re-sample's device ms (both sides, keys drawn, by CUDA events)."""
+    from score_tpu_torch.graph import (gather_candidate_batch,
+                                       subsample_neighbors)
+    from score_tpu_torch.train import _resample, _step_generator
+    u, i, t = (batch[k] for k in ("user", "item", "slot"))
+    mb = gather_candidate_batch(graph, u, i[:, None], t)
+    seed, step = cfg.train.seed, 7
+    got = _resample(cfg, mb, None, seed, step)
+    gen = _step_generator(seed, step, 2, dev)
+    for hist, cnt, k in (("u_hist", "u_cnt", cfg.data.user_fanout),
+                         ("i_hist", "i_cnt", cfg.data.item_fanout)):
+        stored = mb[hist]
+        keys = torch.rand(stored.shape, generator=gen, device=dev)
+        pos = torch.arange(stored.shape[-1], dtype=torch.int32,
+                           device=dev).expand(stored.shape).contiguous()
+        sel, c = subsample_neighbors(pos, mb[cnt], k, keys)
+        if not (torch.equal(c, got[cnt])
+                and torch.equal(c, mb[cnt].clamp_max(k))):
+            raise AssertionError(f"{tag} {hist}: counts not min(cnt, {k})")
+        valid = torch.arange(k, device=dev) < c[..., None]
+        if not torch.equal(torch.gather(stored, -1, sel.long())[valid],
+                           got[hist][valid]):
+            raise AssertionError(f"{tag} {hist}: the sample is not the "
+                                 f"stored rows at the drawn positions")
+        if (sel[valid] >= mb[cnt][..., None].expand(sel.shape)[valid]).any():
+            raise AssertionError(f"{tag} {hist}: a sampled position past "
+                                 f"its row's valid prefix")
+        srt = torch.sort(torch.where(valid, sel, -1 - torch.arange(
+            k, dtype=sel.dtype, device=dev)), dim=-1).values
+        if (srt[..., 1:] == srt[..., :-1]).any():
+            raise AssertionError(f"{tag} {hist}: a position sampled twice")
+    log(f"{tag} re-sample of a batch's histories ([{BATCH},9,"
+        f"{STORED_FAN}] and [{BATCH},1,9,{STORED_FAN}] to "
+        f"{cfg.data.user_fanout}): each sample from its row's valid "
+        f"prefix, no position twice, counts min(cnt, "
+        f"{cfg.data.user_fanout})")
+    return cuda_ms(lambda: _resample(cfg, mb, None, seed, step))
+
+
+def phase_trainer(card: str, ds, dev) -> dict:
+    """Phase 9: configs3 (sum pool, in-batch IW, the bench width) trained
+    with each optimizer and schedule of TRAINER_RUNS, with scorer
+    dropout, and re-sampling a dataset stored at STORED_FAN neighbours
+    down to n=m=10 (the preset's uniform negatives and in-batch IW); each
+    held against the CPU; then the debug and profiling tools on the
+    card."""
+    from score_tpu_torch.debug import checked_lookup
+    from score_tpu_torch.graph import device_graph
+    from score_tpu_torch.kernels import gather as kgather
+    from score_tpu_torch.profiling import timed
+    from score_tpu_torch.train import evaluate, make_eval_step, train_step
+    t_phase = time.perf_counter()
+    out = {}
+    for name, kw in TRAINER_RUNS.items():
+        tag = f"[trainer {name}]"
+        out[name], state, *_ = _trainer_run(
+            card, ds, dev, tag, trainer_config("bfloat16", train=kw))
+        del state
+        steps_vs_cpu(ds, trainer_config("float32", False, train=kw), tag,
+                     (dev, "cpu"), shifts=[[17], [101], [3]])
+    torch.cuda.empty_cache()
+
+    # scorer dropout
+    tag = "[trainer dropout]"
+    cfg = trainer_config("bfloat16", model=dict(dropout=DROPOUT))
+    out["dropout"], state, graph, batches, neg_iw = _trainer_run(
+        card, ds, dev, tag, cfg)
+    evals = [evaluate(make_eval_step(state.model), graph, ds.val,
+                      max_targets=EVAL_TARGETS) for _ in range(2)]
+    if evals[0] != evals[1]:
+        raise AssertionError(f"{tag} two evals differ: {evals}")
+    share = _first_layer_dropped_share(state, graph, batches[0], neg_iw)
+    if abs(share - DROPOUT) > DROPOUT_SHARE_TOL:
+        raise AssertionError(f"{tag} dropped {share:.4f} of the first "
+                             f"hidden layer; expected {DROPOUT}")
+    log(f"{tag} two evals of {EVAL_TARGETS} targets bit-equal (auc "
+        f"{evals[0]['auc']:.6f}); one step dropped {share:.4f} of the "
+        f"first hidden layer's non-zero activations (expected {DROPOUT} +- "
+        f"{DROPOUT_SHARE_TOL})")
+    out["dropout"]["dropped_share"] = share
+    # the timing tool against the run's CUDA-event step time
+    timed_ms = 1e3 * timed(lambda: train_step(state, graph, batches[1],
+                                              neg_iw=neg_iw,
+                                              with_auc=False),
+                           reps=5, device=dev)
+    log(f"{tag} profiling.timed of one step: {timed_ms:.3f} ms (CUDA "
+        f"events around one step, median of 5), beside train_loop's "
+        f"{out['dropout']['step_ms']:.3f} ms a step [{card}]")
+    out["dropout"]["timed_ms"] = timed_ms
+    del state, graph, batches
+    torch.cuda.empty_cache()
+    small = trainer_config("float32", False, model=dict(dropout=DROPOUT))
+    gen = torch.Generator().manual_seed(SEED + 3)
+    C = 1 + small.data.num_train_neg          # [positive | rolled]
+    masks = [[torch.rand(256, C, w, generator=gen) >= DROPOUT
+              for w in small.model.mlp_dims] for _ in range(3)]
+    steps_vs_cpu(ds, small, tag, (dev, "cpu"), shifts=[[17], [101], [3]],
+                 dropout_masks=masks)
+
+    # re-sampling a wider stored fan-out down to the model's
+    ds20 = bench_dataset(STORED_FAN, "[trainer resample]")
+    graph20 = device_graph(ds20.graph, dev)
+    resample = dict(user_fanout=FAN, item_fanout=FAN, neighbor_resample=True)
+    launched = []
+    real_launch = kgather._gather_launch
+
+    def spy(table, ids):
+        launched.append((table.shape[1], table.dtype))
+        return real_launch(table, ids)
+    for neg in ("uniform", "inbatch_iw"):
+        tag = f"[trainer resample {neg}]"
+        cfg = trainer_config("bfloat16", neg=neg, data=resample)
+        res, state, _, batches, neg_iw = _trainer_run(
+            card, ds20, dev, tag, cfg, negatives=neg == "uniform",
+            graph=graph20)
+        kgather._gather_launch = spy
+        try:
+            train_step(state, graph20, batches[0], neg_iw=neg_iw,
+                       with_auc=False)
+        finally:
+            kgather._gather_launch = real_launch
+        if (T * STORED_FAN, torch.int32) not in launched:
+            raise AssertionError(f"{tag} no gather of [*, {T * STORED_FAN}]"
+                                 f" int32 rows: {sorted(set(launched))}")
+        res["resample_ms"] = _check_resampled(tag, cfg, graph20,
+                                              batches[0], dev)
+        log(f"{tag} a step gathers int32 [*, {T * STORED_FAN}] adjacency "
+            f"rows; the re-sample of both sides {res['resample_ms']:.4f} ms "
+            f"of device time a step [{card}]")
+        out[f"resample {neg}"] = res
+        del state, batches
+        torch.cuda.empty_cache()
+        small = trainer_config("float32", False, neg=neg, data=resample)
+        C = 1 + small.data.num_train_neg if neg == "uniform" else 1
+        gen = torch.Generator().manual_seed(SEED + 4)
+        keys = [[torch.rand(256, T, STORED_FAN, generator=gen),
+                 torch.rand(256, C, T, STORED_FAN, generator=gen)]
+                for _ in range(3)]
+        raw = None
+        if neg == "uniform":
+            from score_tpu_torch.train import draw_negatives
+            raw = [draw_negatives(gen, 256, small.data.num_train_neg,
+                                  ds20.num_items) for _ in range(3)]
+        steps_vs_cpu(ds20, small, tag, (dev, "cpu"),
+                     shifts=None if raw else [[17], [101], [3]],
+                     negatives=raw, resample_keys=keys)
+    del graph20, ds20
+
+    # debug: the checked lookup raises on the card
+    table = torch.randn(1000, D, device=dev)
+    ids = torch.randint(0, 1000, (BATCH,), device=dev, dtype=torch.int32)
+    if not torch.equal(checked_lookup(table, ids), table[ids.long()]):
+        raise AssertionError("checked_lookup differs from table[ids]")
+    for bad in (1000, -1):
+        ids[7] = bad
+        try:
+            checked_lookup(table, ids)
+        except ValueError as e:
+            log(f"[trainer] checked_lookup of id {bad} on the card raises: "
+                f"{e}")
+        else:
+            raise AssertionError(f"checked_lookup took id {bad}")
+    torch.cuda.empty_cache()
+    log(f"[trainer] {json.dumps(out)}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA "
@@ -2003,6 +2318,8 @@ def main() -> int:
         mark("[ladder]")
         phase_roster(card, ds, dev, data_dir)
     mark("[roster]")
+    phase_trainer(card, ds, dev)
+    mark("[trainer]")
     kernels = [
         dict(name="gather_rows", route="cuda",
              source="score_tpu_torch/csrc/gather.cu",

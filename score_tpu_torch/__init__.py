@@ -15,11 +15,17 @@ Layout:
     graph.py   device graph store and history gathers
     nn/        embed, slot aggregation (mean, slot attention,
                co-attention), encoders, scorer, model (configs0-3)
-    params.py  flax <-> torch weight and Adam-state bridge, flax-faithful init
+    params.py  flax <-> torch weight and optimizer-state bridge,
+               flax-faithful init
     metrics.py auc
     serve.py   ScoringService: score, score_batch, topk, topk_batch
+    optim.py   adam, adamw, adagrad, sgd; constant, warmup and
+               warmup-cosine learning rates; the table boost
     train.py   the train step and loop (uniform or in-batch negatives,
-               Adam with stride-K tables), eval, the train() driver, CLI
+               stride-K tables, neighbour re-sampling, scorer dropout),
+               eval, the train() driver, CLI
+    debug.py   batch bounds, a checked lookup, autograd NaN checks
+    profiling.py  a profiler window, timing, a FLOP count
 
 Entry points run on the CUDA card unless the caller passes device="cpu".
 """

@@ -4,8 +4,13 @@ Counterpart of score_tpu/checkpoint.py. Each checkpoint holds what the
 reference's orbax checkpoint holds:
 
     {params: the f32 master state_dict,
-     opt_state: {count, mu, nu}   (Adam, one count shared by all leaves),
+     opt_state: {name, count, and the optimizer's state dicts}
+                (adam and adamw: mu, nu; adagrad: sum_of_squares; sgd:
+                none; one count shared by all leaves),
      step, it_epoch, it_pos, best_val}
+
+A file with no optimizer name (`{count, mu, nu}`, as the port wrote
+before it had other optimizers) restores as Adam.
 
 written by `torch.save` to `<directory>/<name>.pt`. It is not orbax: it
 imports none and cannot read a checkpoint the JAX package wrote (convert
@@ -48,11 +53,11 @@ class CheckpointManager:
         write it in the background; block=True returns once it is on
         disk. A save still in flight is finished first."""
         self.wait()
-        opt = state.opt
+        opt = {k: (_to_host(v) if isinstance(v, Mapping) else v)
+               for k, v in state.opt.state().items()}
         payload = {
             "params": _to_host(state.model.state_dict()),
-            "opt_state": {"count": int(opt.count), "mu": _to_host(opt.mu),
-                          "nu": _to_host(opt.nu)},
+            "opt_state": opt,
             "step": int(step),
             "it_epoch": int(it_state[0]),
             "it_pos": int(it_state[1]),
@@ -105,10 +110,11 @@ class CheckpointManager:
 
 def apply_restore(state, restored: dict):
     """Load a restored payload into `state` in place: the model's weights,
-    the Adam count and moments, and `state.step`, so stride-K table updates
-    fall on the steps the reference's do."""
+    the optimizer's count and state (refused if the payload names another
+    optimizer; a payload with no name is Adam's), and `state.step`, so
+    stride-K table updates fall on the steps the reference's do."""
     with torch.no_grad():
         state.model.load_state_dict(restored["params"])
-    state.opt.load_state(**restored["opt_state"])
+    state.opt.load_state(**{"name": "adam", **restored["opt_state"]})
     state.step = int(restored["step"])
     return state

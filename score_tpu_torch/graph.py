@@ -4,7 +4,8 @@ Counterpart of score_tpu/graph.py. The dense padded adjacency lives on the
 device, node-major (a node's full history [T, k] is one contiguous row), and
 the history of a batch of targets is one row gather per side through the
 gather kernel. The slot-validity mask is `t < t*`, so a target never sees
-its own or future slots.
+its own or future slots. `subsample_neighbors` re-draws a narrower
+uniform subset of a stored history (DataConfig.neighbor_resample).
 """
 
 from __future__ import annotations
@@ -69,6 +70,37 @@ def slot_valid_mask(slots: torch.Tensor, num_slots: int) -> torch.Tensor:
     """[B, T] bool: slot t is usable history for a target at t* iff t < t*."""
     t = torch.arange(num_slots, dtype=slots.dtype, device=slots.device)
     return t[None, :] < slots[:, None]
+
+
+def subsample_neighbors(hist: torch.Tensor, cnt: torch.Tensor, k: int,
+                        keys: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A uniform k-subset, without replacement, of each row's valid
+    neighbours: hist [..., S] ids, cnt [...] valid counts, keys [..., S]
+    uniform draws in [0, 1) -> ([..., k], min(cnt, k)). The top k of the
+    keys over the valid prefix (the others' keys set to -1, so they sort
+    last) pick the sample; a row of fewer than k valid neighbours keeps
+    them all, first, and some of its invalid ones after them, which its
+    count masks. Rows no wider than k come back as they are."""
+    S = hist.shape[-1]
+    if S <= k:
+        return hist, cnt
+    j = torch.arange(S, dtype=cnt.dtype, device=cnt.device)
+    keys = torch.where(j < cnt[..., None], keys, -1.0)
+    idx = torch.topk(keys, k, dim=-1).indices
+    return torch.take_along_dim(hist, idx, dim=-1), cnt.clamp_max(k)
+
+
+def gather_batch(g: DeviceGraph, users: torch.Tensor, items: torch.Tensor,
+                 slots: torch.Tensor) -> dict:
+    """The model's history inputs for B (user, item) targets: users, items
+    and slots [B] -> {user, item, slot, u_hist [B, T, n], u_cnt, i_hist
+    [B, T, m], i_cnt, slot_valid}."""
+    u_hist, u_cnt = gather_side(g.u2i, g.u2i_cnt, users)
+    i_hist, i_cnt = gather_side(g.i2u, g.i2u_cnt, items)
+    return dict(user=users, item=items, slot=slots, u_hist=u_hist,
+                u_cnt=u_cnt, i_hist=i_hist, i_cnt=i_cnt,
+                slot_valid=slot_valid_mask(slots, g.num_slots))
 
 
 def gather_candidate_batch(g: DeviceGraph, users: torch.Tensor,

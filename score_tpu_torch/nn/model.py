@@ -24,7 +24,7 @@ roster's other archs (`arch` 'mf', 'pop', 'svdpp', 'delf') are in
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -77,21 +77,34 @@ def check_config(cfg: Config) -> None:
             f"(num_data={sh.num_data}, num_rows={sh.num_rows})")
 
 
-def check_device(cfg: Config, device) -> None:
+def check_device(cfg, device, fanouts: Optional[Sequence[int]] = None
+                 ) -> None:
     """On a CUDA device, raise NotImplementedError for a co-attention
     config wider than its kernels take: embed_dim above MAX_WIDE_DIM, or a
-    neighbour fan-out above MAX_WIDE_ROWS. The CPU runs the plain versions,
-    which have no limit."""
-    m = cfg.model
+    neighbour fan-out above MAX_WIDE_ROWS. The fan-outs are cfg.data's
+    (cfg a Config; a ModelConfig has none) and `fanouts`, the widths a
+    graph stores (`stored_fanouts`): eval and serving run at the stored
+    width, and so does training unless it re-samples down to cfg.data's.
+    The CPU runs the plain versions, which have no limit."""
+    m = getattr(cfg, "model", cfg)
     if (torch.device(device).type != "cuda" or m.arch != "score"
             or m.slot_agg != "coattn"):
         return
-    d, fu, fi = m.embed_dim, cfg.data.user_fanout, cfg.data.item_fanout
-    if d > MAX_WIDE_DIM or max(fu, fi) > MAX_WIDE_ROWS:
+    widths = ([cfg.data.user_fanout, cfg.data.item_fanout]
+              if hasattr(cfg, "data") else [])
+    widths += list(fanouts or ())
+    if m.embed_dim > MAX_WIDE_DIM or max(widths, default=0) > MAX_WIDE_ROWS:
         raise NotImplementedError(
             f"the co-attention kernels take embed_dim <= {MAX_WIDE_DIM} and "
             f"neighbour fan-outs <= {MAX_WIDE_ROWS} on a CUDA device; got "
-            f"embed_dim={d}, user_fanout={fu}, item_fanout={fi}")
+            f"embed_dim={m.embed_dim}, fan-outs {widths} (configured, then "
+            f"stored)")
+
+
+def stored_fanouts(graph) -> Tuple[int, int]:
+    """The (user, item) neighbour fan-outs a graph stores: a GraphStore's
+    or a DeviceGraph's last axis."""
+    return graph.u2i.shape[-1], graph.i2u.shape[-1]
 
 
 def _nbr_mask(cnt: torch.Tensor, fanout: int,
@@ -163,14 +176,17 @@ class ScoreModel(nn.Module):
             if self.dual:
                 self.pool_i = AttnPool(f, d)
         self.scorer = Scorer(scorer_width(cfg), cfg.mlp_dims,
-                             self.compute_dtype)
+                             self.compute_dtype, cfg.dropout)
 
     def forward(self, batch: dict) -> torch.Tensor:
         """Flat (u, i) pairs: the candidates form with C == 1 -> [B]."""
         return self.score_candidates(candidates_form(batch, self.dual))[:, 0]
 
     def score_candidates(self, batch: dict,
-                         neg_shift: Optional[Sequence[int]] = None
+                         neg_shift: Optional[Sequence[int]] = None,
+                         dropout_masks: Optional[Sequence[torch.Tensor]]
+                         = None,
+                         dropout_generator: Optional[torch.Generator] = None
                          ) -> torch.Tensor:
         """One user vs C candidate items (batch from
         `graph.gather_candidate_batch`; with sides='user' the item side's
@@ -180,7 +196,9 @@ class ScoreModel(nn.Module):
         the tables' gradients arrive in f32. `neg_shift` (k in-batch
         shifts, C == 1 only): candidate c >= 1 of example b is example
         (b + neg_shift[c-1]) mod B's positive, its item side a batch roll
-        of the embedded tensors -> logits [B, 1 + k]."""
+        of the embedded tensors -> logits [B, 1 + k]. In training mode
+        the scorer's dropout takes `dropout_masks` (one bool mask a hidden
+        layer, [B, C, width]) or draws them from `dropout_generator`."""
         cfg, dual = self.cfg, self.dual
         cdt = self.compute_dtype
         sv = batch["slot_valid"]                                  # [B, T]
@@ -232,7 +250,8 @@ class ScoreModel(nn.Module):
             h_i = self._encode(self.gru_i, getattr(self, "pool_i", None),
                                ci, eu_c, sv)
             feats = [h_u, h_i, eu_c, ei, h_u * h_i, eu_c * ei]
-        return self.scorer(feats)                                 # [B, C]
+        return self.scorer(feats, dropout_masks,
+                           dropout_generator)                     # [B, C]
 
     @staticmethod
     def _encode(gru: nn.Module, pool: Optional[AttnPool], c: torch.Tensor,

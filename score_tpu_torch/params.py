@@ -1,6 +1,6 @@
 """Weight bridge between the flax param tree and the port's state_dict (and
-an optax Adam state and the port's Adam), and a flax-faithful initialiser
-that needs no JAX.
+an optax optimizer state and the port's optimizers), and a flax-faithful
+initialiser that needs no JAX.
 
 The state_dict keys mirror the flax paths with '.' for '/'. Flax `kernel`
 leaves become torch `weight` leaves:
@@ -17,7 +17,7 @@ its name and layout, whichever model's tree it is.
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -100,25 +100,36 @@ def cast_tables(state_dict: Mapping[str, torch.Tensor],
     return sd
 
 
-def opt_state_from_optax(opt_state) -> dict:
-    """The Adam part of an optax state (optax.adam, alone or in a chain
-    with masked scales) -> {count, mu, nu} with mu and nu as state_dicts,
-    for `train.init_state(..., opt_state=...)`. Found by its fields, so no
-    optax import is needed."""
-    def find(node):   # optax states are (named) tuples all the way down
-        if all(hasattr(node, f) for f in ("count", "mu", "nu")):
-            return node
+def opt_state_from_optax(opt_state, step: Optional[int] = None) -> dict:
+    """The state of an optax optimizer of score_tpu/train.py:make_optimizer
+    (adam, adamw, adagrad or sgd, at any schedule, in a chain with masked
+    scales) -> {count, and its state dicts} for `train.init_state(...,
+    opt_state=...)`: Adam's and AdamW's {count, mu, nu}, Adagrad's
+    {count, sum_of_squares}, SGD's {count}. The parts are found by their
+    fields (ScaleByAdamState's count, mu, nu; ScaleByRssState's
+    sum_of_squares; ScaleByScheduleState's count), so no optax import is
+    needed. sgd and adagrad at a constant lr keep no count: pass `step`,
+    the flax TrainState's, for them."""
+    found = {}
+
+    def walk(node):   # optax states are (named) tuples all the way down
+        for field in getattr(node, "_fields", ()):
+            if field in ("mu", "nu", "sum_of_squares", "count"):
+                found.setdefault(field, getattr(node, field))
         if isinstance(node, (tuple, list)):
             for child in node:
-                hit = find(child)
-                if hit is not None:
-                    return hit
-        return None
-    adam = find(opt_state)
-    if adam is None:
-        raise ValueError("no Adam state (count, mu, nu) in the optax state")
-    return dict(count=int(np.asarray(adam.count)), mu=from_flax(adam.mu),
-                nu=from_flax(adam.nu))
+                walk(child)
+    walk(opt_state)
+    if "count" in found:
+        count = int(np.asarray(found.pop("count")))
+        if step is not None and step != count:
+            raise ValueError(f"the optax state's count {count} is not the "
+                             f"train state's step {step}")
+    elif step is None:
+        raise ValueError("this optax state keeps no count; pass step=")
+    else:
+        count = int(step)
+    return dict(count=count, **{k: from_flax(v) for k, v in found.items()})
 
 
 def _lecun_normal(shape, fan_in: int, g: torch.Generator) -> torch.Tensor:

@@ -26,7 +26,8 @@ import torch
 from .config import Config
 from .data.schema import Dataset
 from .graph import DeviceGraph, device_graph, gather_candidate_batch
-from .nn.model import build_model, check_config, check_device
+from .nn.model import (build_model, check_config, check_device,
+                       stored_fanouts)
 from .params import cast_tables
 
 _BUCKETS = (1, 16, 64, 256, 1024, 4096)
@@ -48,7 +49,7 @@ class ScoringService:
                  slot: Optional[int] = None, candidate_chunk: int = 4096,
                  topk_grid_rows: int = 16, device="cuda"):
         check_config(cfg)
-        check_device(cfg, device)
+        check_device(cfg, device, stored_fanouts(ds.graph))
         self.cfg = cfg
         self.device = torch.device(device)
         self.candidate_chunk = int(candidate_chunk)

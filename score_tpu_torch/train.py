@@ -4,11 +4,12 @@ checkpoints and its CLI.
 
 Counterpart of score_tpu/train.py (build_model, make_optimizer,
 item_importance_weights, _table_l2, _resample_collisions, the train step
-of _make_train_step_fn with uniform or in-batch negatives and stride-K
-table updates, the train loop, make_eval_step, _eval_accum, evaluate,
-train and main): uniform negatives
-with collision resampling (every preset's default) or in-batch
-(importance-weighted) ones, Adam at a constant learning rate,
+of _make_train_step_fn with uniform or in-batch negatives, per-step
+neighbour re-sampling, scorer dropout and stride-K table updates, the
+train loop, make_eval_step, _eval_accum, evaluate, train and main):
+uniform negatives with collision resampling (every preset's default) or
+in-batch (importance-weighted) ones; adam, adamw, adagrad or sgd at a
+constant, linear-warmup or warmup-cosine learning rate (`optim.py`), with
 `table_update_every` and `table_lr_boost`; any rung of the preset ladder,
 any co-attention pool, and the baseline roster (the eight `baseline_*`
 presets: MF, popularity, SVD++, DELF, and GRU4Rec, Caser, SASRec and RRN
@@ -29,18 +30,20 @@ CLI:  python -m score_tpu_torch.train <preset> [data_dir] [--device cpu]
           [section.key=value ...]
 
 Everything runs on `device`, the CUDA card unless the caller asks for
-another. The parameters and Adam moments are updated in place. The step
-never waits for the device: metrics come back as device tensors.
+another. The parameters and optimizer state are updated in place. The
+step never waits for the device: metrics come back as device tensors,
+and dropout masks and re-sampling keys are drawn on the device from
+generators seeded by (seed, step), so a resumed run draws the same ones.
 
-Left out, and refused where a config asks for them: neighbour
-re-sampling, optimizers other than Adam, learning-rate schedules, scorer
-dropout, sharded layouts and non-f32 parameters. In-batch negatives on a
-baseline arch raise ValueError, as the reference's step does: those archs
-score the positive alone.
+Left out, and refused where a config asks for them: sharded layouts and
+non-f32 parameters. In-batch negatives on a baseline arch raise
+ValueError, as the reference's step does: those archs score the positive
+alone.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -56,18 +59,16 @@ from .checkpoint import CheckpointManager, apply_restore
 from .config import PRESETS, Config, apply_overrides
 from .data.pipeline import TargetIterator, eval_index_batches
 from .data.schema import Dataset
-from .graph import DeviceGraph, device_graph, gather_candidate_batch
+from .graph import (DeviceGraph, device_graph, gather_candidate_batch,
+                    subsample_neighbors)
 from .metrics import (F16_BINS, auc, hist_auc, rank_sum_keys, ranking_sums,
                       score_hists)
-from .nn.model import build_model, check_config, check_device
+from .nn.model import (build_model, check_config, check_device,
+                       stored_fanouts)
 from .nn.scorer import bce_loss
+from .optim import Optimizer, is_table, make_optimizer
 from .params import cast_tables, init_params
-
-
-def is_table(name: str) -> bool:
-    """The reference's path rule for embedding tables (L2, stride-K,
-    table_lr_boost): a parameter whose name contains 'table'."""
-    return "table" in name
+from .profiling import maybe_profile
 
 
 def item_importance_weights(train_split, num_items: int) -> np.ndarray:
@@ -80,87 +81,6 @@ def item_importance_weights(train_split, num_items: int) -> np.ndarray:
     w = train_split.item.size / (num_items * np.maximum(cnt, 1.0))
     w[cnt == 0] = 0.0
     return w.astype(np.float32)
-
-
-class Adam:
-    """optax.adam(lr) at a constant lr, chained with optax.masked(scale(
-    table_lr_boost)) on the table updates, written out with one step count
-    shared by all parameters, as optax keeps it. On a step that updates
-    only some parameters (a dense step of stride-K training) the count
-    still advances, and the others' values and moments stay bit-unchanged;
-    torch.optim.Adam's per-parameter step would give their next update
-    another bias correction. The arithmetic follows optax's order:
-    mu = (1-b1) g + b1 mu, nu = (1-b2) g^2 + b2 nu,
-    u = -lr * (mu / bc1) / (sqrt(nu / bc2) + eps), times the boost on
-    tables, p = p + u."""
-
-    def __init__(self, params: Mapping[str, torch.Tensor], lr: float,
-                 table_lr_boost: float = 1.0, b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8):
-        self.params = dict(params)
-        self.lr, self.boost = float(lr), float(table_lr_boost)
-        self.b1, self.b2, self.eps = b1, b2, eps
-        self.mu = {k: torch.zeros_like(p) for k, p in self.params.items()}
-        self.nu = {k: torch.zeros_like(p) for k, p in self.params.items()}
-        self.count = 0
-
-    def load_state(self, count: int, mu: Mapping[str, torch.Tensor],
-                   nu: Mapping[str, torch.Tensor]) -> None:
-        """Start from a given count and moments (e.g. an optax state
-        through score_tpu_torch.params.opt_state_from_optax)."""
-        self.count = int(count)
-        for k, p in self.params.items():
-            self.mu[k] = mu[k].to(p.device, p.dtype).clone()
-            self.nu[k] = nu[k].to(p.device, p.dtype).clone()
-
-    def _bias_correction(self, decay: float) -> float:
-        # f32, as optax computes 1 - decay**count
-        return float(np.float32(1) - np.float32(decay) ** np.int32(self.count))
-
-    @torch.no_grad()
-    def step(self, names: Sequence[str],
-             grads: Sequence[torch.Tensor]) -> None:
-        """Update the parameters `names` with `grads`; the count advances
-        once (also with no parameter to update)."""
-        self.count += 1
-        if not names:
-            return
-        bc1 = self._bias_correction(self.b1)
-        bc2 = self._bias_correction(self.b2)
-        grads = list(grads)
-        ps = [self.params[k] for k in names]
-        mus = [self.mu[k] for k in names]
-        nus = [self.nu[k] for k in names]
-        torch._foreach_mul_(mus, self.b1)
-        torch._foreach_add_(mus, torch._foreach_mul(grads, 1.0 - self.b1))
-        g2 = torch._foreach_mul(grads, grads)
-        torch._foreach_mul_(g2, 1.0 - self.b2)
-        torch._foreach_mul_(nus, self.b2)
-        torch._foreach_add_(nus, g2)
-        upd = torch._foreach_div(mus, bc1)
-        den = torch._foreach_div(nus, bc2)
-        torch._foreach_sqrt_(den)
-        torch._foreach_add_(den, self.eps)
-        torch._foreach_div_(upd, den)
-        torch._foreach_mul_(upd, -self.lr)
-        if self.boost != 1.0:
-            tables = [u for k, u in zip(names, upd) if is_table(k)]
-            if tables:
-                torch._foreach_mul_(tables, self.boost)
-        torch._foreach_add_(ps, upd)
-
-
-def make_optimizer(cfg: Config, params: Mapping[str, torch.Tensor]) -> Adam:
-    """The optimizer of TrainConfig: Adam at a constant learning rate, with
-    table_lr_boost. Other optimizers and schedules are not ported yet."""
-    tc = cfg.train
-    if tc.optimizer != "adam" or tc.lr_schedule != "constant" or \
-            tc.warmup_steps:
-        raise NotImplementedError(
-            f"score_tpu_torch trains with adam at a constant lr only; got "
-            f"optimizer={tc.optimizer!r} lr_schedule={tc.lr_schedule!r} "
-            f"warmup_steps={tc.warmup_steps}")
-    return Adam(params, tc.learning_rate, tc.table_lr_boost)
 
 
 def table_l2(model: torch.nn.Module) -> torch.Tensor:
@@ -177,7 +97,7 @@ class TrainState:
 
     cfg: Config
     model: torch.nn.Module
-    opt: Adam
+    opt: Optimizer
     generator: torch.Generator
     step: int = 0
 
@@ -187,16 +107,13 @@ class TrainState:
 
 
 def check_trainable(cfg: Config) -> None:
-    """Raise NotImplementedError for what the port does not train yet, and
-    ValueError for in-batch negatives on a baseline arch: its
-    score_candidates ignores the shifts and scores the positive alone, so
-    its [B, 1] logits cannot meet [B, 1 + k] labels (the reference's step
-    raises on the same shapes)."""
+    """Raise NotImplementedError for what the port does not train (a
+    sharded layout, non-f32 parameters: `check_config`), and ValueError
+    for in-batch negatives on a baseline arch: its score_candidates
+    ignores the shifts and scores the positive alone, so its [B, 1]
+    logits cannot meet [B, 1 + k] labels (the reference's step raises on
+    the same shapes)."""
     check_config(cfg)
-    if cfg.data.neighbor_resample:
-        raise NotImplementedError("neighbor_resample is not ported yet")
-    if cfg.model.dropout > 0:
-        raise NotImplementedError("scorer dropout is not ported yet")
     if cfg.model.arch != "score" and cfg.data.train_neg_mode != "uniform":
         raise ValueError(
             f"arch {cfg.model.arch!r} scores no in-batch negatives "
@@ -205,19 +122,24 @@ def check_trainable(cfg: Config) -> None:
 
 def init_state(cfg: Config, num_users: int, num_items: int,
                state_dict: Mapping[str, torch.Tensor], device="cuda",
-               opt_state: Optional[Mapping] = None) -> TrainState:
+               opt_state: Optional[Mapping] = None,
+               steps_per_epoch: int = 0) -> TrainState:
     """A TrainState on `device` from f32 weights (`params.init_params` or
-    `params.from_flax`), and optionally an optimizer state
-    {count, mu, nu} to start from. A restored state resumes at step
+    `params.from_flax`), and optionally an optimizer state to start from
+    ({count, and the optimizer's state dicts}: a checkpoint's, or
+    `params.opt_state_from_optax`). A restored state resumes at step
     `count`, as the reference's restored TrainState carries its step, so
-    stride-K table updates fall on the same steps."""
+    stride-K table updates and the schedule fall on the same steps.
+    `steps_per_epoch` sets a cosine schedule's horizon when
+    cfg.train.decay_steps is 0, as the reference's init_state does."""
     check_trainable(cfg)
     check_device(cfg, device)
     model = build_model(cfg, num_users, num_items)
     model.load_state_dict({k: v.to(device=device, dtype=torch.float32)
                            for k, v in state_dict.items()}, assign=True)
     model.train()
-    opt = make_optimizer(cfg, dict(model.named_parameters()))
+    opt = make_optimizer(cfg, dict(model.named_parameters()),
+                         steps_per_epoch)
     if opt_state is not None:
         opt.load_state(**opt_state)
     return TrainState(cfg=cfg, model=model, opt=opt,
@@ -234,10 +156,19 @@ def draw_shifts(generator: torch.Generator, k: int, B: int) -> List[int]:
     return (torch.randperm(hi - 1, generator=generator)[:k] + 1).tolist()
 
 
-def _step_generator(seed: int, step: int) -> torch.Generator:
-    # the counterpart of the reference's fold_in(PRNGKey(seed), step)
-    return torch.Generator().manual_seed(((seed & 0xFFFFFFFF) << 32)
-                                         | (step & 0xFFFFFFFF))
+def _step_generator(seed: int, step: int, stream: int = 0,
+                    device="cpu") -> torch.Generator:
+    """The counterpart of the reference's fold_in(PRNGKey(seed), step)
+    (stream 0: the host's shifts and negatives), and of folding 1
+    (dropout masks) or 2 (re-sampling keys) into it: a generator on
+    `device` for each."""
+    g = torch.Generator(device=device)
+    if stream == 0:
+        return g.manual_seed(((seed & 0xFFFFFFFF) << 32)
+                             | (step & 0xFFFFFFFF))
+    words = np.random.SeedSequence(
+        [seed & 0xFFFFFFFF, step & 0xFFFFFFFF, stream]).generate_state(2)
+    return g.manual_seed(int(words[0]) << 32 | int(words[1]))
 
 
 def step_shifts(seed: int, step: int, k: int, B: int) -> List[int]:
@@ -277,14 +208,42 @@ def _as_device(x, device) -> torch.Tensor:
     return x.to(device=device, dtype=torch.int32)
 
 
+def _resample(cfg: Config, mb: dict, keys, seed: int, step: int) -> dict:
+    """DataConfig.neighbor_resample: each step draws a fresh uniform
+    subset of the stored histories (u_hist [B, T, S], i_hist [B, C, T, S])
+    down to the model's fan-outs, on the device, as the reference's
+    _resample does after its gather. `keys` (u_keys, i_keys) are uniform
+    draws of the histories' shapes; None draws them from the step's
+    re-sampling generator."""
+    if not cfg.data.neighbor_resample:
+        return mb
+    mb = dict(mb)
+    sides = [("u_hist", "u_cnt", cfg.data.user_fanout)]
+    if "i_hist" in mb:         # a model of sides='user' gathers no items
+        sides.append(("i_hist", "i_cnt", cfg.data.item_fanout))
+    gen = None
+    for j, (hist, cnt, k) in enumerate(sides):
+        if keys is not None:
+            key = keys[j].to(mb[hist].device)
+        else:
+            if gen is None:
+                gen = _step_generator(seed, step, 2, mb[hist].device)
+            key = torch.rand(mb[hist].shape, generator=gen,
+                             device=mb[hist].device)
+        mb[hist], mb[cnt] = subsample_neighbors(mb[hist], mb[cnt], k, key)
+    return mb
+
+
 def train_step(state: TrainState, graph: DeviceGraph, batch: Mapping,
                shifts: Optional[Sequence[int]] = None,
                neg_iw: Optional[torch.Tensor] = None,
-               with_auc: bool = True, negatives=None
+               with_auc: bool = True, negatives=None,
+               dropout_masks: Optional[Sequence[torch.Tensor]] = None,
+               resample_keys: Optional[Sequence[torch.Tensor]] = None
                ) -> Tuple[TrainState, Dict]:
     """One step on batch {user, item, slot} [B]: the negatives of
     cfg.data.train_neg_mode, the BCE plus L2 on the tables, gradients and
-    Adam.
+    the optimizer's update.
 
     'uniform': `negatives` are the raw [B, k] draws in [1, num_items]
     (drawn from state.generator if None); a draw equal to its positive is
@@ -295,7 +254,14 @@ def train_step(state: TrainState, graph: DeviceGraph, batch: Mapping,
     a rolled positive equal to the example's own dropping out of the
     weighted BCE, importance-weighted by `neg_iw` with 'inbatch_iw'.
 
-    Tables and their moments update only on steps with step %
+    With cfg.data.neighbor_resample the gathered histories are re-sampled
+    to cfg.data's fan-outs (`resample_keys`: the user and item sides'
+    uniform keys; drawn on the device if None). With cfg.model.dropout >
+    0 the scorer drops hidden activations (`dropout_masks`: one bool mask
+    a hidden layer; drawn on the device if None); the baseline archs have
+    no scorer and ignore it, as the reference's do.
+
+    Tables and their optimizer state update only on steps with step %
     table_update_every == 0; on the others no table gradient is computed
     at all (the reference's stop_gradient). Returns the state (updated in
     place) and {loss, batch_auc} (or {loss, logits, weights} without AUC),
@@ -339,8 +305,16 @@ def train_step(state: TrainState, graph: DeviceGraph, batch: Mapping,
     stride = cfg.train.table_update_every
     full = stride <= 1 or state.step % stride == 0
     names = [n for n, _ in model.named_parameters() if full or not is_table(n)]
-    mb = gather_candidate_batch(graph, u, cand, t, item_side=model.dual)
-    logits = model.score_candidates(mb, neg_shift=shifts)
+    mb = _resample(cfg, gather_candidate_batch(graph, u, cand, t,
+                                               item_side=model.dual),
+                   resample_keys, cfg.train.seed, state.step)
+    drop = {}
+    if cfg.model.arch == "score" and cfg.model.dropout > 0:
+        drop = dict(dropout_masks=dropout_masks)
+        if dropout_masks is None:
+            drop["dropout_generator"] = _step_generator(
+                cfg.train.seed, state.step, 1, dev)
+    logits = model.score_candidates(mb, neg_shift=shifts, **drop)
     loss = bce_loss(logits, labels, weights)
     if weights is None:     # the monitoring AUC's weights
         weights = torch.ones_like(labels)
@@ -349,12 +323,11 @@ def train_step(state: TrainState, graph: DeviceGraph, batch: Mapping,
         total = loss + cfg.train.l2_emb * table_l2(model)
     params = dict(model.named_parameters())
     # a parameter the step does not reach (a bias table's other side with
-    # no L2; every table of the popularity floor on a dense step) gets a
-    # zero gradient, as optax gives it; the count advances all the same
+    # no L2; every table of the popularity floor on a dense step) gets no
+    # gradient here, and the optimizer takes it as zeros, as optax does
     grads = (torch.autograd.grad(total, [params[n] for n in names],
                                  allow_unused=True) if names else ())
-    state.opt.step(names, [torch.zeros_like(params[n]) if g is None else g
-                           for n, g in zip(names, grads)])
+    state.opt.step(names, grads)
     state.step += 1
     out = {"loss": loss.detach()}
     logits = logits.detach()
@@ -453,6 +426,10 @@ def evaluate(eval_step: Callable, graph: DeviceGraph, targets,
     ranking sums per block), which is read back once at the end and
     reduced in f64 on the host. `max_targets` scores a subsample drawn
     with a fixed seed (np.random.default_rng(0)), the same every run."""
+    dev = graph.u2i.device
+    model = getattr(eval_step, "model", None)
+    if model is not None:   # eval runs at the graph's stored fan-outs
+        check_device(model.cfg, dev, stored_fanouts(graph))
     n = len(targets)
     sel = None
     if max_targets is not None and n > max_targets:
@@ -461,7 +438,6 @@ def evaluate(eval_step: Callable, graph: DeviceGraph, targets,
     cols = {k: (getattr(targets, k) if sel is None
                 else getattr(targets, k)[sel])
             for k in ("user", "item", "slot", "neg")}
-    dev = graph.u2i.device
     names = rank_sum_keys(tuple(ks))
     n_blocks = -(-n // batch_size)
     carry = dict(hist_pos=torch.zeros(F16_BINS, dtype=torch.int32,
@@ -517,23 +493,6 @@ def _stage_batches(it: TargetIterator, k: int, device, negatives=None
     return out
 
 
-def _start_profiler(dev: torch.device):
-    from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU]
-    if dev.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    prof = profile(activities=acts)
-    prof.start()
-    return prof
-
-
-def _export_trace(prof, directory: str, step: int) -> None:
-    prof.stop()
-    os.makedirs(directory, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(directory,
-                                          f"trace_step{step}.json"))
-
-
 def train(cfg: Config, ds: Dataset, verbose: bool = True,
           log_path: Optional[str] = None, *, device="cuda",
           parity_state_dict: Optional[Mapping[str, torch.Tensor]] = None,
@@ -553,10 +512,13 @@ def train(cfg: Config, ds: Dataset, verbose: bool = True,
     last, on eval_max_targets targets, through one resident eval step
     refreshed with the current weights. With cfg.train.checkpoint_dir,
     `latest` is saved at every val and `best` when val AUC rises, and a run
-    that finds `latest` resumes from it (weights, Adam, step, iterator
-    position and best val) and takes its best parameters from `best`.
-    With cfg.train.profile_dir, a torch.profiler window over steps 10-30
-    writes a Chrome trace there.
+    that finds `latest` resumes from it (weights, optimizer state, step,
+    iterator position and best val) and takes its best parameters from
+    `best`. With cfg.train.profile_dir, a torch.profiler window over
+    steps 10-30 writes a Chrome trace there (`profiling.maybe_profile`,
+    trace_step10.json). A co-attention config whose stored or configured
+    fan-outs the card's kernels do not take is refused before anything
+    moves to the device.
 
     `parity_state_dict`, `parity_shifts_fn(step, B)` and
     `parity_negatives_fn(step, B)` are for parity tests only: the initial
@@ -570,6 +532,8 @@ def train(cfg: Config, ds: Dataset, verbose: bool = True,
     seconds spent training, in each val and in the test eval."""
     tc = cfg.train
     dev = torch.device(device)
+    check_trainable(cfg)
+    check_device(cfg, dev, stored_fanouts(ds.graph))
     graph = device_graph(ds.graph, dev)
     it = TargetIterator(ds.train, tc.batch_size, seed=tc.seed)
     if parity_state_dict is None:
@@ -577,7 +541,8 @@ def train(cfg: Config, ds: Dataset, verbose: bool = True,
                          torch.Generator().manual_seed(tc.seed))
     else:   # the state trains in place: leave the caller's tensors alone
         sd = {k: v.clone() for k, v in parity_state_dict.items()}
-    state = init_state(cfg, ds.num_users, ds.num_items, sd, device=dev)
+    state = init_state(cfg, ds.num_users, ds.num_items, sd, device=dev,
+                       steps_per_epoch=it.steps_per_epoch)
     neg_iw = None
     if cfg.data.train_neg_mode == "inbatch_iw":
         neg_iw = torch.from_numpy(
@@ -625,7 +590,7 @@ def train(cfg: Config, ds: Dataset, verbose: bool = True,
                 nxt.append((s // period + 1) * period)
         return min(nxt)
 
-    prof, profiled = None, False
+    prof, profiled = contextlib.ExitStack(), False
     t_mark = time.perf_counter()
     while step < total_steps:
         chunk = min(next_boundary(step) - step, 50)
@@ -654,11 +619,12 @@ def train(cfg: Config, ds: Dataset, verbose: bool = True,
         if tc.profile_dir:
             # one window over steps 10..30: past the warm-up, short enough
             # to read
-            if step >= 10 and prof is None and not profiled:
-                prof = _start_profiler(dev)
-            elif step >= 30 and prof is not None:
-                _export_trace(prof, tc.profile_dir, step)
-                prof, profiled = None, True
+            if step >= 10 and not profiled:
+                prof.enter_context(maybe_profile(
+                    tc.profile_dir, f"trace_step{step}", device=dev))
+                profiled = True
+            elif step >= 30:
+                prof.close()
         if verbose and step % tc.log_every_steps == 0:
             print(f"step {step}/{total_steps} epoch {it.epoch} "
                   f"loss {float(m['loss']):.4f} "
@@ -702,8 +668,7 @@ def train(cfg: Config, ds: Dataset, verbose: bool = True,
             if stop:
                 break
 
-    if prof is not None:
-        _export_trace(prof, tc.profile_dir, step)
+    prof.close()
     if ckpt is not None:
         ckpt.wait()   # the last save is on disk before we may exit
     timing["steps"] = step - timing["start_step"]

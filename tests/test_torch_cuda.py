@@ -1007,3 +1007,126 @@ def test_roster_forward_and_step_on_card_match_cpu(cuda, name):
             continue
         torch.testing.assert_close(out["cuda"][2][k], want, rtol=1e-4,
                                    atol=1e-5, msg=k)
+
+
+@pytest.mark.parametrize("shape", [(64, 2), (64,)])
+def test_stored_width_adjacency_gather(cuda, shape):
+    """Re-sampling gathers the stored fan-out: int32 adjacency rows of
+    T x S = 9 x 20 = 180 ints (720 B), bit-exact against the plain
+    version."""
+    rng = np.random.default_rng(180)
+    table = torch.from_numpy(rng.integers(0, 2**30, (5000, 180)).astype(
+        np.int32))
+    ids = torch.from_numpy(rng.integers(0, 5000, shape).astype(np.int32))
+    before = tgather.gather_rows.launches
+    got = tgather.gather_rows(table.to(cuda), ids.to(cuda))
+    torch.cuda.synchronize()
+    assert tgather.gather_rows.launches == before + 1
+    assert torch.equal(got.cpu(), tgather.gather_rows_plain(table, ids))
+
+
+def _trainer_steps(cfg, ds, device, batches, masks=None, keys=None):
+    """3 steps of `cfg` on `device` from init_params(seed 0) with the
+    attention weights made non-zero; returns the losses and the params on
+    the CPU."""
+    from score_tpu_torch.graph import device_graph
+    from score_tpu_torch.params import init_params
+    from score_tpu_torch.train import (init_state, item_importance_weights,
+                                       train_step)
+    gen = torch.Generator().manual_seed(0)
+    sd = init_params(cfg, ds.num_users, ds.num_items, gen)
+    for k in sd:
+        if k.startswith("coattn.") or k.endswith(".w"):
+            sd[k] = torch.randn(sd[k].shape, generator=gen) * 0.3
+    st = init_state(cfg, ds.num_users, ds.num_items, sd, device=device,
+                    steps_per_epoch=3)
+    graph = device_graph(ds.graph, device)
+    neg_iw = torch.from_numpy(item_importance_weights(ds.train, ds.num_items))
+    losses = []
+    for j, b in enumerate(batches):
+        st, m = train_step(
+            st, graph, b, [17 + j], neg_iw.to(device),
+            dropout_masks=None if masks is None else masks[j],
+            resample_keys=None if keys is None else keys[j])
+        losses.append(m["loss"].item())
+    return losses, {k: v.detach().cpu()
+                    for k, v in st.model.named_parameters()}
+
+
+def _card_vs_cpu(card, cpu):
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-5, atol=1e-6)
+    for k, want in cpu[1].items():
+        torch.testing.assert_close(card[1][k], want, rtol=1e-4, atol=1e-5,
+                                   msg=k)
+
+
+@pytest.mark.parametrize("opt", [dict(optimizer="adam", warmup_steps=2),
+                                 dict(optimizer="adamw", weight_decay=1e-4,
+                                      lr_schedule="cosine", warmup_steps=1),
+                                 dict(optimizer="adagrad",
+                                      learning_rate=1e-2,
+                                      lr_schedule="cosine"),
+                                 dict(optimizer="sgd", learning_rate=0.5)])
+def test_optimizer_steps_on_card_match_cpu(cuda, opt):
+    """3 stride-2 steps of each optimizer and schedule, f32, batch 256, on
+    the card and on the CPU: the losses to 1e-5 and the parameters to
+    rtol 1e-4 / atol 1e-5, as chip_smoke.py holds its 3 steps."""
+    from score_tpu_torch.data.pipeline import TargetIterator
+    ds = _small_dataset()
+    cfg = _small_cfg(**opt)
+    it = TargetIterator(ds.train, 256)
+    batches = [next(it) for _ in range(3)]
+    _card_vs_cpu(_trainer_steps(cfg, ds, cuda, batches),
+                 _trainer_steps(cfg, ds, torch.device("cpu"), batches))
+
+
+def test_dropout_masks_on_card(cuda):
+    """Scorer dropout 0.1 drawing its masks on the card: two runs draw
+    the same masks (their first steps' losses are bit-equal; the later
+    steps' tables come from the scatter-add's f32 atomics, which add in
+    no fixed order); the first hidden layer drops about 10%; and with
+    masks made on the host, 3 steps on the card agree with the CPU's."""
+    from score_tpu_torch.data.pipeline import TargetIterator
+    from score_tpu_torch.train import _step_generator
+    ds = _small_dataset()
+    cfg = _small_cfg()
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, dropout=0.1))
+    it = TargetIterator(ds.train, 256)
+    batches = [next(it) for _ in range(3)]
+    a = _trainer_steps(cfg, ds, cuda, batches)
+    b = _trainer_steps(cfg, ds, cuda, batches)
+    assert a[0][0] == b[0][0]
+    g = _step_generator(cfg.train.seed, 0, 1, cuda)
+    keep = torch.rand(4096, 2, 128, generator=g, device=cuda) < 0.9
+    assert abs(1 - keep.float().mean().item() - 0.1) < 0.01
+    gen = torch.Generator().manual_seed(5)
+    masks = [[torch.rand(256, 2, w, generator=gen) < 0.9
+              for w in cfg.model.mlp_dims] for _ in range(3)]
+    _card_vs_cpu(
+        _trainer_steps(cfg, ds, cuda, batches,
+                       [[m.to(cuda) for m in ms] for ms in masks]),
+        _trainer_steps(cfg, ds, torch.device("cpu"), batches, masks))
+
+
+def test_resampling_steps_on_card_match_cpu(cuda):
+    """Re-sampling the stored fan-out 6 down to 3 from the same keys: 3
+    steps on the card and on the CPU agree; two runs drawing the keys on
+    the card draw the same ones (their first steps' losses are
+    bit-equal)."""
+    from score_tpu_torch.data.pipeline import TargetIterator
+    ds = _small_dataset()
+    cfg = _small_cfg()
+    cfg = cfg.replace(data=dataclasses.replace(
+        cfg.data, user_fanout=3, item_fanout=3, neighbor_resample=True))
+    it = TargetIterator(ds.train, 256)
+    batches = [next(it) for _ in range(3)]
+    gen = torch.Generator().manual_seed(6)
+    T = ds.graph.num_slots
+    keys = [[torch.rand(256, T, 6, generator=gen),
+             torch.rand(256, 1, T, 6, generator=gen)] for _ in range(3)]
+    _card_vs_cpu(_trainer_steps(cfg, ds, cuda, batches, keys=keys),
+                 _trainer_steps(cfg, ds, torch.device("cpu"), batches,
+                                keys=keys))
+    a = _trainer_steps(cfg, ds, cuda, batches)
+    b = _trainer_steps(cfg, ds, cuda, batches)
+    assert a[0][0] == b[0][0]

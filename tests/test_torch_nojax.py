@@ -93,6 +93,27 @@ for pool in ("sum", "max"):
 metrics = evaluate(make_eval_step(state.model), graph, ds.val, batch_size=16)
 assert 0.0 <= metrics["auc"] <= 1.0 and "ndcg@10" in metrics, metrics
 
+# the trainer's other knobs: adagrad on a warmup-cosine schedule, scorer
+# dropout and per-step neighbour re-sampling; and the debug and profiling
+# modules
+from score_tpu_torch import debug, profiling
+
+c = cfg.replace(
+    model=dataclasses.replace(cfg.model, dropout=0.1),
+    data=dataclasses.replace(cfg.data, user_fanout=2, item_fanout=2,
+                             neighbor_resample=True),
+    train=dataclasses.replace(cfg.train, optimizer="adagrad",
+                              lr_schedule="cosine", warmup_steps=1,
+                              decay_steps=4))
+state = init_state(c, ds.num_users, ds.num_items, sd, device="cpu")
+it = TargetIterator(ds.train, 32, seed=0)
+for _ in range(2):
+    state, m = train_step(state, graph, next(it), neg_iw=neg_iw)
+    assert np.isfinite(m["loss"].item())
+assert debug.checked_lookup(torch.ones(4, 2), torch.tensor([3])).shape == (
+    1, 2)
+assert profiling.timed(torch.mm, torch.ones(2, 3), torch.ones(3, 4)) > 0
+
 # a baseline arch of the roster (DELF: both sides' histories), served and
 # trained with its preset's uniform negatives
 from score_tpu_torch.config import PRESETS

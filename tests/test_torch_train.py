@@ -295,24 +295,6 @@ def test_table_lr_boost_scales_table_updates_only(tiny_dataset):
             torch.testing.assert_close(db, du, rtol=1e-6, atol=1e-8)
 
 
-@pytest.mark.parametrize("over", [dict(train=dict(warmup_steps=10)),
-                                  dict(model=dict(arch="mf"),
-                                       data=dict(neighbor_resample=True)),
-                                  dict(data=dict(neighbor_resample=True)),
-                                  dict(model=dict(dropout=0.1)),
-                                  dict(train=dict(optimizer="sgd")),
-                                  dict(train=dict(lr_schedule="cosine"))])
-def test_refuses_what_is_not_ported(tiny_dataset, over):
-    cfg = _cfg()
-    cfg = cfg.replace(**{sec: dataclasses.replace(getattr(cfg, sec), **kw)
-                         for sec, kw in over.items()})
-    w = init_params(_cfg(), tiny_dataset.num_users, tiny_dataset.num_items,
-                    torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError):
-        ttrain.init_state(cfg, tiny_dataset.num_users,
-                          tiny_dataset.num_items, w, device="cpu")
-
-
 @pytest.mark.parametrize("case", ["ties", "weights", "one_class", "random"])
 def test_auc_matches_jax(case):
     rng = np.random.default_rng(len(case))
