@@ -151,6 +151,24 @@ fails or no CUDA device is present.
    keys. Last, `debug.checked_lookup` on the card raises on an
    out-of-range id. Phase 2 holds the gather to its plain version at the
    stored width too ([90560,180] ids [4096,2], [50048,180] ids [4096]).
+10. Sharding ([shard]): a one-rank NCCL world through `sharding.bringup`
+   (a file store in a temporary directory; a multi-rank world needs a
+   card a rank). The a2a and psum lookups into configs3's item table, f32
+   [90560,32], at the real ids of one in-batch batch (the [4096,1]
+   targets, the [4096,9,10] histories), each id tensor its own exchange:
+   rows bit-equal to the local grouped gather, the table gradient within
+   1e-5 relative of its scatter-add; CUDA-event ms forward and backward,
+   kernels a lookup and each dedup sort's ms. Then configs3 (sum pool,
+   in-batch IW, B=4096, stride 2 at 2x) trained under the mesh with a2a
+   lookups: 3 f32 steps against 3 local steps from the same weights and
+   shifts (params rtol 1e-4 / atol 1e-6, a2a_overflow 0); in bf16 the
+   first step's loss bit-equal and its dense weights within that
+   tolerance (the tables part: the local step sums a rolled negative's
+   gradient in bf16, the sharded one in f32), then 20 steps of each in
+   turns (local, a2a, a2a, local, 5 steps each), the gather and
+   scatter-add launched under the sharded steps, each profiled; last, an
+   a2a step at a2a_capacity 1000, whose a2a_overflow must equal the
+   uniques past it that the host counts in its four lookups' ids.
 
 The [roster] and [trainer] summary lines give each run's step ms,
 kernels a step, idle share and val AUC. The line before the last lists each kernel with
@@ -2085,8 +2103,8 @@ def _first_layer_dropped_share(state, graph, batch, neg_iw) -> float:
     scorer = state.model.scorer
     seen = []
 
-    def spy(x, mask, generator):
-        y = type(scorer)._drop(scorer, x, mask, generator)
+    def spy(x, mask):
+        y = type(scorer)._drop(scorer, x, mask)
         if not seen:
             live = x != 0
             seen.append(((y == 0) & live).sum().item() / live.sum().item())
@@ -2272,6 +2290,289 @@ def phase_trainer(card: str, ds, dev) -> dict:
     return out
 
 
+# --- phase 10: [shard] -----------------------------------------------------
+
+SHARD_CHECK_STEPS, SHARD_TIMED_STEPS, SHARD_ROUND = 3, 20, 5
+SHARD_CAPACITY = 1000          # below every lookup's per-rank unique ids
+
+
+def _device_kernels(fn, reps: int = 4) -> tuple:
+    """(kernels, device ms) a call of fn: torch.profiler's CUDA events over
+    `reps` calls after two it does not count, in a schedule as `_profile`
+    takes a step's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=1, active=reps)) as prof:
+        for _ in range(reps + 2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    evs = [ev for ev in prof.key_averages()
+           if ev.device_type == DeviceType.CUDA and ev.self_device_time_total
+           and not ev.key.startswith("ProfilerStep")]
+    return (sum(ev.count for ev in evs) / reps,
+            sum(ev.self_device_time_total for ev in evs) / 1e3 / reps)
+
+
+def _shard_lookups(card: str, ds, dev, mesh, gen) -> dict:
+    """configs3's item table and the real ids of one in-batch training
+    batch (targets [4096, 1], histories [4096, 9, 10]): the a2a and psum
+    lookups, each id tensor its own exchange, against the local grouped
+    gather; forward bit-equal, the table gradient within 1e-5 relative of
+    the local scatter-add's; CUDA-event ms, kernels a lookup and the dedup
+    sorts' device ms."""
+    from score_tpu_torch.kernels.gather import gather_rows_grouped
+    from score_tpu_torch.sharding import ShardedLookup
+    rows, ids, srcs = _real_segments(ds, dev, "configs3", "inbatch",
+                                     gen)["item"]
+    table = torch.randn(rows, D, generator=gen, device=dev,
+                        requires_grad=True)
+    local = gather_rows_grouped(table, ids)
+    (g_local,) = torch.autograd.grad(local, [table], srcs, retain_graph=True)
+    out = {"local": {}}
+    with torch.no_grad():
+        out["local"]["fwd_ms"] = cuda_ms(
+            lambda: gather_rows_grouped(table, ids))
+    out["local"]["bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        local, [table], srcs, retain_graph=True))
+    out["local"]["kernels"] = _device_kernels(
+        lambda: torch.autograd.grad(gather_rows_grouped(table, ids),
+                                    [table], srcs))[0] / len(ids)
+    for mode in ("a2a", "psum"):
+        fn = ShardedLookup(mesh, mode)
+        got, ovf = fn.grouped(table, ids)
+        for g, w in zip(got, local):
+            if not torch.equal(g, w):
+                raise AssertionError(f"[shard] {mode} rows differ from the "
+                                     f"local gather")
+        if ovf is not None and int(ovf.sum()) != 0:
+            raise AssertionError(f"[shard] {mode} overflow {ovf.tolist()} "
+                                 f"at the exact capacity")
+        (g_tab,) = torch.autograd.grad(got, [table], srcs)
+        scale = max(g_local.abs().max().item(), 1.0)
+        torch.testing.assert_close(g_tab, g_local, rtol=1e-5,
+                                   atol=1e-5 * scale)
+        err = (g_tab - g_local).abs().max().item()
+        r = {"max_abs_err": err}
+        with torch.no_grad():
+            r["fwd_ms"] = cuda_ms(lambda: fn.grouped(table, ids))
+        got, _ = fn.grouped(table, ids)
+        r["bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            got, [table], srcs, retain_graph=True))
+        r["fwd_kernels"] = _device_kernels(
+            lambda: fn.grouped(table, ids))[0] / len(ids)
+        r["kernels"] = _device_kernels(
+            lambda: torch.autograd.grad(fn.grouped(table, ids)[0], [table],
+                                        srcs))[0] / len(ids)
+        out[mode] = r
+    # the dedup sort of each lookup's ids, alone
+    out["a2a"]["sort_ms"] = [
+        cuda_ms(lambda: torch.sort(i.reshape(-1), stable=True))
+        for i in ids]
+    a, p, lo = out["a2a"], out["psum"], out["local"]
+    shapes = [tuple(i.shape) for i in ids]
+    log(f"[shard] lookups into f32 [{rows},{D}], ids {shapes}: a2a and "
+        f"psum rows bit-equal to the local grouped "
+        f"gather, gradients within 1e-5 rel (max_abs_err "
+        f"{a['max_abs_err']:.3e} / {p['max_abs_err']:.3e}); forward a2a "
+        f"{a['fwd_ms']:.4f} "
+        f"/ psum {p['fwd_ms']:.4f} / local {lo['fwd_ms']:.4f} ms, backward "
+        f"{a['bwd_ms']:.4f} / {p['bwd_ms']:.4f} / {lo['bwd_ms']:.4f} ms "
+        f"(CUDA events); kernels a lookup, forward and backward: a2a "
+        f"{a['kernels']:.1f} ({a['fwd_kernels']:.1f} forward), psum "
+        f"{p['kernels']:.1f}, local {lo['kernels']:.1f}; the dedup sort "
+        f"of each id tensor alone {[round(x, 4) for x in a['sort_ms']]} ms "
+        f"[{card}]")
+    return out
+
+
+def _host_overflow(mb: dict, capacity: int) -> int:
+    """The uniques past `capacity` of each of a step's four lookups (users,
+    item histories; candidates, user histories), counted on the host."""
+    total = 0
+    for key in ("user", "i_hist", "cand", "u_hist"):
+        ids = mb[key].cpu().numpy().reshape(-1)
+        total += max(np.unique(ids).size - min(capacity, ids.size), 0)
+    return total
+
+
+def phase_shard(card: str, ds, dev) -> dict:
+    """Phase 10 ([shard]): a one-rank NCCL world through
+    `sharding.bringup`; the a2a and psum lookups at the training shape
+    against the local gather; configs3 (sum pool, in-batch IW, B=4096,
+    stride 2 at 2x) trained under the mesh with a2a lookups against the
+    local step, then timed in turns with it and profiled; an a2a step at
+    a capacity below the unique ids, its overflow against the host's
+    count."""
+    import torch.distributed as dist
+    from score_tpu_torch.config import ShardingConfig
+    from score_tpu_torch.graph import device_graph, gather_candidate_batch
+    from score_tpu_torch.params import init_params
+    from score_tpu_torch.sharding import bringup, full_tables
+    from score_tpu_torch.train import (draw_shifts, init_state,
+                                       item_importance_weights, train_loop,
+                                       train_step)
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh, lookup_fn = bringup(None, init_method=f"file://{tmp}/store",
+                                  world_size=1, rank=0, device=dev)
+        try:
+            if lookup_fn is not None or mesh.size != 1:
+                raise AssertionError(f"[shard] a world of one: {mesh}, "
+                                     f"lookup {lookup_fn}")
+            log(f"[shard] a {dist.get_backend()} world of "
+                f"{dist.get_world_size()} rank, mesh {mesh.shape} on "
+                f"{mesh.device}")
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            out["lookups"] = _shard_lookups(card, ds, dev, mesh, gen)
+            graph = device_graph(ds.graph, dev)
+            neg_iw = torch.from_numpy(
+                item_importance_weights(ds.train, ds.num_items)).to(dev)
+            batches = _device_batches(ds, 4 * SHARD_ROUND + 6, BATCH, dev)
+            shift_gen = torch.Generator().manual_seed(SEED + 5)
+            shifts = [draw_shifts(shift_gen, 1, BATCH)
+                      for _ in range(len(batches))]
+
+            def states(dtype, capacity=0):
+                cfg = bench_config(dtype)
+                sd = init_params(cfg, ds.num_users, ds.num_items,
+                                 torch.Generator().manual_seed(SEED))
+                a2a = cfg.replace(sharding=ShardingConfig(
+                    lookup_mode="a2a", a2a_capacity=capacity))
+                return (init_state(a2a, ds.num_users, ds.num_items,
+                                   {k: v.clone() for k, v in sd.items()},
+                                   device=dev, mesh=mesh),
+                        init_state(cfg, ds.num_users, ds.num_items, sd,
+                                   device=dev))
+
+            # f32: 3 sharded steps against 3 local ones
+            sharded, plain = states("float32")
+            for j in range(SHARD_CHECK_STEPS):
+                sharded, ms = train_step(sharded, graph, batches[j],
+                                         shifts[j], neg_iw)
+                plain, mp = train_step(plain, graph, batches[j], shifts[j],
+                                       neg_iw)
+                np.testing.assert_allclose(ms["loss"].item(),
+                                           mp["loss"].item(), **LOSS_TOL)
+                if int(ms["a2a_overflow"]) != 0:
+                    raise AssertionError(f"[shard] overflow "
+                                         f"{int(ms['a2a_overflow'])}")
+            got = full_tables(mesh, sharded)
+            worst, where = 0.0, None
+            for k, want in plain.model.named_parameters():
+                torch.testing.assert_close(got[k], want.detach(), rtol=1e-4,
+                                           atol=1e-6, msg=k)
+                err = (got[k] - want.detach()).abs().max().item()
+                if err >= worst:
+                    worst, where = err, k
+            log(f"[shard] f32, B={BATCH}: {SHARD_CHECK_STEPS} a2a steps "
+                f"under the mesh against {SHARD_CHECK_STEPS} local steps "
+                f"from the same weights and shifts: losses within "
+                f"{LOSS_TOL}, params max_abs_err {worst:.3e} ({where}; tol "
+                f"rtol 1e-4 atol 1e-6), a2a_overflow 0")
+            del sharded, plain, got
+            torch.cuda.empty_cache()
+
+            # bf16, as phase 4 trains: the first step's loss bit-equal and
+            # its dense weights within the f32 tolerance (the local step
+            # sums a rolled negative's gradient into its positive's in
+            # bf16, the sharded one in f32 in the scatter-add, so their
+            # tables part from the first update); then timed in turns
+            sharded, plain = states("bfloat16")
+            sharded, ms = train_step(sharded, graph, batches[0], shifts[0],
+                                     neg_iw)
+            plain, mp = train_step(plain, graph, batches[0], shifts[0],
+                                   neg_iw)
+            if ms["loss"].item() != mp["loss"].item():
+                raise AssertionError(f"[shard] bf16 first losses "
+                                     f"{ms['loss'].item()} vs "
+                                     f"{mp['loss'].item()}")
+            got = full_tables(mesh, sharded)
+            for k, want in plain.model.named_parameters():
+                if "table" not in k:
+                    torch.testing.assert_close(got[k], want.detach(),
+                                               rtol=1e-4, atol=1e-6, msg=k)
+            log(f"[shard] bf16: the first a2a step's loss bit-equal to the "
+                f"local step's ({ms['loss'].item()}), its dense weights "
+                f"within rtol 1e-4 atol 1e-6")
+            timed = {"a2a": [], "local": []}
+            fns = reset_counts()
+            launches = None
+            order = ["local", "a2a", "a2a", "local"]
+            for r, name in enumerate(order):
+                st = sharded if name == "a2a" else plain
+                lo = 1 + SHARD_ROUND * r
+                chunk = slice(lo, lo + SHARD_ROUND)
+                if name == "a2a":
+                    for fn in fns.values():
+                        fn.launches = 0
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                start.record()
+                st, m = train_loop(st, graph, batches[chunk], shifts[chunk],
+                                   neg_iw)
+                end.record()
+                torch.cuda.synchronize()
+                timed[name].append(start.elapsed_time(end) / SHARD_ROUND)
+                if name == "a2a":
+                    counts = {k: fn.launches for k, fn in fns.items()}
+                    launches = (counts if launches is None else
+                                {k: v + counts[k]
+                                 for k, v in launches.items()})
+                    if int(m["a2a_overflow"][0]) != 0:
+                        raise AssertionError("[shard] bf16 overflow")
+            log(f"[shard] launches in the {len(timed['a2a']) * SHARD_ROUND} "
+                f"timed a2a steps: {launches}")
+            check_launches("[shard]", launches, TRAIN_KERNELS["sum"])
+            res = {}
+            for name, st in (("a2a", sharded), ("local", plain)):
+                step_ms = statistics.mean(timed[name])
+                prof = _profile(st, graph, batches[-6:], neg_iw, card,
+                                step_ms, f"[shard {name}]")
+                res[name] = dict(step_ms=step_ms, rounds=timed[name], **prof)
+            log(f"[shard] bf16 B={BATCH} steps in turns "
+                f"{order} x {SHARD_ROUND}: a2a {res['a2a']['step_ms']:.3f}"
+                f" ms a step {[round(x, 3) for x in timed['a2a']]}, local "
+                f"{res['local']['step_ms']:.3f} ms "
+                f"{[round(x, 3) for x in timed['local']]} (CUDA events); "
+                f"kernels a step {res['a2a']['kernels']:.1f} vs "
+                f"{res['local']['kernels']:.1f}, device ms "
+                f"{res['a2a']['device_ms']:.3f} vs "
+                f"{res['local']['device_ms']:.3f}, idle share "
+                f"{res['a2a']['idle']:.3f} vs {res['local']['idle']:.3f} "
+                f"[{card}]")
+            out["steps"] = res
+            del sharded, plain
+            torch.cuda.empty_cache()
+
+            # overflow below the per-rank unique ids, against the host
+            sharded, _ = states("bfloat16", SHARD_CAPACITY)
+            b = batches[0]
+            cand = torch.stack([b["item"], torch.roll(b["item"],
+                                                      -shifts[0][0])], 1)
+            mb = gather_candidate_batch(graph, b["user"], cand, b["slot"])
+            want = _host_overflow(mb, SHARD_CAPACITY)
+            sharded, m = train_step(sharded, graph, b, shifts[0], neg_iw)
+            got_ovf = int(m["a2a_overflow"])
+            if got_ovf != want or want <= 0:
+                raise AssertionError(f"[shard] overflow {got_ovf} at "
+                                     f"capacity {SHARD_CAPACITY}; the host "
+                                     f"counts {want}")
+            log(f"[shard] an a2a step at a2a_capacity {SHARD_CAPACITY}: "
+                f"a2a_overflow {got_ovf}, as the host counts the uniques "
+                f"past it in the step's four lookups")
+            out["overflow"] = got_ovf
+            del sharded
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    log(f"[shard] phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA "
@@ -2320,6 +2621,8 @@ def main() -> int:
     mark("[roster]")
     phase_trainer(card, ds, dev)
     mark("[trainer]")
+    phase_shard(card, ds, dev)
+    mark("[shard]")
     kernels = [
         dict(name="gather_rows", route="cuda",
              source="score_tpu_torch/csrc/gather.cu",

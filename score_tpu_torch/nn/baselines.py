@@ -77,10 +77,12 @@ class _Baseline(nn.Module):
 
     dual = False        # reads the candidates' item-side histories
 
-    def __init__(self, cfg: ModelConfig, num_users: int, num_items: int):
+    def __init__(self, cfg: ModelConfig, num_users: int, num_items: int,
+                 lookup_fn=None):
         super().__init__()
         self.cfg = cfg
         self.num_users, self.num_items = num_users, num_items
+        self.lookup_fn = lookup_fn
 
     def _tables(self, users: bool = True, items: bool = True,
                 dim: Optional[int] = None, shared: bool = False
@@ -90,7 +92,7 @@ class _Baseline(nn.Module):
         return EmbeddingTables(self.num_users if users else 0,
                                self.num_items if items else 0,
                                self.cfg.embed_dim if dim is None else dim,
-                               shared=shared)
+                               shared=shared, lookup_fn=self.lookup_fn)
 
     def forward(self, batch: dict) -> torch.Tensor:
         """Flat (u, i) pairs -> [B]."""
@@ -100,8 +102,9 @@ class _Baseline(nn.Module):
 class MFModel(_Baseline):
     """score = <eu, ei> + b_u + b_i + b (no histories)."""
 
-    def __init__(self, cfg: ModelConfig, num_users: int, num_items: int):
-        super().__init__(cfg, num_users, num_items)
+    def __init__(self, cfg: ModelConfig, num_users: int, num_items: int,
+                 lookup_fn=None):
+        super().__init__(cfg, num_users, num_items, lookup_fn)
         self.tables = self._tables(shared=cfg.shared_table)
         self.user_bias = self._tables(items=False, dim=1)
         self.item_bias = self._tables(users=False, dim=1)
@@ -124,8 +127,9 @@ class MFModel(_Baseline):
 class PopModel(_Baseline):
     """Popularity floor: score = b_i."""
 
-    def __init__(self, cfg: ModelConfig, num_users: int, num_items: int):
-        super().__init__(cfg, num_users, num_items)
+    def __init__(self, cfg: ModelConfig, num_users: int, num_items: int,
+                 lookup_fn=None):
+        super().__init__(cfg, num_users, num_items, lookup_fn)
         self.item_bias = self._tables(users=False, dim=1)
 
     def score_candidates(self, batch: dict,
@@ -139,8 +143,9 @@ class SVDPPModel(_Baseline):
     N(u) the user's valid history (slots t < t*), y a separate implicit
     item table; the implicit factor once a user in the candidates form."""
 
-    def __init__(self, cfg: ModelConfig, num_users: int, num_items: int):
-        super().__init__(cfg, num_users, num_items)
+    def __init__(self, cfg: ModelConfig, num_users: int, num_items: int,
+                 lookup_fn=None):
+        super().__init__(cfg, num_users, num_items, lookup_fn)
         self.tables = self._tables(shared=cfg.shared_table)
         self.implicit_tables = self._tables(users=False)
         self.user_bias = self._tables(items=False, dim=1)
@@ -178,8 +183,9 @@ class DELFModel(_Baseline):
     dual = True
     PAIRS = ("ee", "eq", "pe", "pq")
 
-    def __init__(self, cfg: ModelConfig, num_users: int, num_items: int):
-        super().__init__(cfg, num_users, num_items)
+    def __init__(self, cfg: ModelConfig, num_users: int, num_items: int,
+                 lookup_fn=None):
+        super().__init__(cfg, num_users, num_items, lookup_fn)
         d, h = cfg.embed_dim, cfg.hidden_dim
         self.tables = self._tables(shared=cfg.shared_table)
         self.hist_tables = self._tables()

@@ -3,15 +3,18 @@
 Counterpart of score_tpu/nn/embed.py. Row 0 of every table is the padding
 row; padding is handled by masks where the rows are used, never by zeroing
 the row. Row counts are rounded up to a multiple of 64 (the pad rows are
-never addressed by valid ids). Lookups go through the gather kernel, whose
+never addressed by valid ids), so row-sharding over any rows axis that
+divides 64 needs no repadding. Lookups go through the gather kernel, whose
 backward (the scatter-add kernel) gives the f32 tables their gradients;
 `lookup` groups all of a step's lookups into each table, so each table's
-gradient is one scatter-add.
+gradient is one scatter-add. With a `lookup_fn` (`sharding.make_lookup_fn`)
+the tables are row blocks and each lookup is its own exchange over the
+mesh, its rows' gradients still one scatter-add into each block.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -30,13 +33,17 @@ class EmbeddingTables(nn.Module):
     """User/item tables; `shared=True` packs both into one table.
 
     Shared layout: index 0 = pad, 1..num_items = items, num_items+1.. =
-    users. Parameters start empty; `score_tpu_torch.params` fills them."""
+    users. Parameters start empty; `score_tpu_torch.params` fills them.
+    `overflow` sums the a2a lookups' overflow counts since it was last
+    reset to None, as the reference sows them."""
 
     def __init__(self, num_users: int, num_items: int, dim: int,
-                 shared: bool = False):
+                 shared: bool = False, lookup_fn=None):
         super().__init__()
         self.num_items = num_items
         self.shared = shared
+        self.lookup_fn = lookup_fn
+        self.overflow: Optional[torch.Tensor] = None
         if shared:
             rows = round_up(1 + num_items + num_users)
             self.table = nn.Parameter(torch.empty(rows, dim))
@@ -62,7 +69,18 @@ class EmbeddingTables(nn.Module):
         if self.shared:
             offset = [torch.where(u > 0, u + self.num_items,
                                   torch.zeros_like(u)) for u in users]
-            out = gather_rows_grouped(self.table, [*items, *offset])
+            out = self._gather(self.table, [*items, *offset])
             return out[len(items):], out[:len(items)]
-        return (gather_rows_grouped(self.user_table, users),
-                gather_rows_grouped(self.item_table, items))
+        return (self._gather(self.user_table, users),
+                self._gather(self.item_table, items))
+
+    def _gather(self, table: torch.Tensor, ids: Sequence[torch.Tensor]
+                ) -> List[torch.Tensor]:
+        if self.lookup_fn is None:
+            return gather_rows_grouped(table, ids)
+        out, overflow = self.lookup_fn.grouped(table, ids)
+        if overflow is not None:
+            total = overflow.sum()
+            self.overflow = (total if self.overflow is None
+                             else self.overflow + total)
+        return out

@@ -65,16 +65,31 @@ def check_supported(cfg: ModelConfig) -> None:
             f"param_dtype={cfg.param_dtype!r}")
 
 
-def check_config(cfg: Config) -> None:
-    """check_supported on the model, and refuse a sharded layout: the port
-    runs on one device, and a sharded config must not run as an unsharded
-    one."""
+def check_config(cfg: Config, mesh=None) -> None:
+    """check_supported on the model, and a sharded layout only under a
+    mesh of its shape (`sharding.bringup`): a sharded config must not run
+    as an unsharded one. Under a mesh the port trains step by step
+    (`train.init_state(..., mesh=)`, `train.train_step`); the driver,
+    checkpoints and serving under a mesh are sharding part 2."""
     check_supported(cfg.model)
     sh = cfg.sharding
-    if sh.num_data * sh.num_rows > 1:
+    if mesh is not None:
+        if (mesh.num_data, mesh.num_rows) != (sh.num_data, sh.num_rows):
+            raise ValueError(
+                f"a ({mesh.num_data}, {mesh.num_rows}) mesh for a "
+                f"(num_data={sh.num_data}, num_rows={sh.num_rows}) config")
+        # every rank takes an equal block of the batch
+        if cfg.train.batch_size % mesh.size:
+            raise ValueError(
+                f"batch_size {cfg.train.batch_size} does not split over a "
+                f"{mesh.size}-rank mesh")
+    elif sh.num_data * sh.num_rows > 1:
         raise NotImplementedError(
-            f"score_tpu_torch runs on one device; sharding is not ported "
-            f"(num_data={sh.num_data}, num_rows={sh.num_rows})")
+            f"a sharded layout (num_data={sh.num_data}, "
+            f"num_rows={sh.num_rows}) runs only step by step under a mesh "
+            f"(sharding.bringup, train.init_state(..., mesh=), "
+            f"train.train_step); train(), checkpoints and ScoringService "
+            f"under a mesh come with sharding part 2")
 
 
 def check_device(cfg, device, fanouts: Optional[Sequence[int]] = None
@@ -124,18 +139,21 @@ def candidates_form(batch: dict, dual: bool) -> dict:
     return cb
 
 
-def build_model(cfg, num_users: int, num_items: int) -> nn.Module:
+def build_model(cfg, num_users: int, num_items: int,
+                lookup_fn=None) -> nn.Module:
     """The model `cfg.arch` names (cfg a Config or its ModelConfig):
-    ScoreModel for 'score', else the baseline arch of `nn.baselines`."""
+    ScoreModel for 'score', else the baseline arch of `nn.baselines`;
+    every table's lookups through `lookup_fn` (`sharding.make_lookup_fn`;
+    None: the local gather)."""
     m = getattr(cfg, "model", cfg)
     check_supported(m)
     if m.arch == "score":
-        return ScoreModel(m, num_users, num_items)
+        return ScoreModel(m, num_users, num_items, lookup_fn)
     from . import baselines
     cls = {"mf": baselines.MFModel, "pop": baselines.PopModel,
            "svdpp": baselines.SVDPPModel,
            "delf": baselines.DELFModel}[m.arch]
-    return cls(m, num_users, num_items)
+    return cls(m, num_users, num_items, lookup_fn)
 
 
 def _encoder(kind: str, in_dim: int, features: int) -> nn.Module:
@@ -151,7 +169,8 @@ def _encoder(kind: str, in_dim: int, features: int) -> nn.Module:
 class ScoreModel(nn.Module):
     """Neighbour-based sequential scorer (the SCoRe family, configs0-3)."""
 
-    def __init__(self, cfg: ModelConfig, num_users: int, num_items: int):
+    def __init__(self, cfg: ModelConfig, num_users: int, num_items: int,
+                 lookup_fn=None):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
@@ -160,7 +179,8 @@ class ScoreModel(nn.Module):
         self.dual = cfg.sides == "dual"
         d, f = cfg.embed_dim, cfg.hidden_dim
         self.tables = EmbeddingTables(num_users, num_items, d,
-                                      shared=cfg.shared_table)
+                                      shared=cfg.shared_table,
+                                      lookup_fn=lookup_fn)
         if cfg.slot_agg == "coattn":
             self.coattn = CrossCoAttention(d, pool=cfg.coattn_pool,
                                            target_aware=cfg.target_aware)
@@ -185,9 +205,7 @@ class ScoreModel(nn.Module):
     def score_candidates(self, batch: dict,
                          neg_shift: Optional[Sequence[int]] = None,
                          dropout_masks: Optional[Sequence[torch.Tensor]]
-                         = None,
-                         dropout_generator: Optional[torch.Generator] = None
-                         ) -> torch.Tensor:
+                         = None) -> torch.Tensor:
         """One user vs C candidate items (batch from
         `graph.gather_candidate_batch`; with sides='user' the item side's
         i_hist and i_cnt are not read) -> logits [B, C] in f32.
@@ -198,7 +216,8 @@ class ScoreModel(nn.Module):
         (b + neg_shift[c-1]) mod B's positive, its item side a batch roll
         of the embedded tensors -> logits [B, 1 + k]. In training mode
         the scorer's dropout takes `dropout_masks` (one bool mask a hidden
-        layer, [B, C, width]) or draws them from `dropout_generator`."""
+        layer, [B, C, width]) or draws them from torch's default
+        generator (`train.train_step` draws them from the step's)."""
         cfg, dual = self.cfg, self.dual
         cdt = self.compute_dtype
         sv = batch["slot_valid"]                                  # [B, T]
@@ -250,8 +269,7 @@ class ScoreModel(nn.Module):
             h_i = self._encode(self.gru_i, getattr(self, "pool_i", None),
                                ci, eu_c, sv)
             feats = [h_u, h_i, eu_c, ei, h_u * h_i, eu_c * ei]
-        return self.scorer(feats, dropout_masks,
-                           dropout_generator)                     # [B, C]
+        return self.scorer(feats, dropout_masks)                 # [B, C]
 
     @staticmethod
     def _encode(gru: nn.Module, pool: Optional[AttnPool], c: torch.Tensor,

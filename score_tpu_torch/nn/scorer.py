@@ -32,14 +32,13 @@ class Scorer(nn.Module):
         self.out = nn.Linear(in_dim, 1)
 
     def forward(self, feats: Sequence[torch.Tensor],
-                dropout_masks: Optional[Sequence[torch.Tensor]] = None,
-                generator: Optional[torch.Generator] = None
+                dropout_masks: Optional[Sequence[torch.Tensor]] = None
                 ) -> torch.Tensor:
         """feats [..., *] -> logits [...] in f32. In training mode with
         dropout > 0, hidden layer i keeps the elements where
         dropout_masks[i] (bool, the layer's shape) is true, or, with no
-        masks, where uniform draws from `generator` (on the activations'
-        device) fall below the keep probability."""
+        masks, where uniform draws from torch's default generator (on the
+        activations' device) fall below the keep probability."""
         cdt = self.dtype
         x = torch.cat([f.to(cdt) for f in feats], dim=-1)
         for i in range(self.num_hidden):
@@ -49,19 +48,18 @@ class Scorer(nn.Module):
             x = F.relu(F.linear(x, layer.weight.to(cdt)) + layer.bias.to(cdt))
             if self.training and self.dropout > 0:
                 x = self._drop(x, None if dropout_masks is None
-                               else dropout_masks[i], generator)
+                               else dropout_masks[i])
         logit = F.linear(x.float(), self.out.weight.float(),
                          self.out.bias.float())
         return logit.squeeze(-1)
 
-    def _drop(self, x: torch.Tensor, mask: Optional[torch.Tensor],
-              generator: Optional[torch.Generator]) -> torch.Tensor:
+    def _drop(self, x: torch.Tensor, mask: Optional[torch.Tensor]
+              ) -> torch.Tensor:
         keep = 1.0 - self.dropout
         if keep <= 0.0:
             return torch.zeros_like(x)
         if mask is None:
-            mask = torch.rand(x.shape, generator=generator,
-                              device=x.device) < keep
+            mask = torch.rand(x.shape, device=x.device) < keep
         # flax divides by keep_prob rounded to x's dtype (a bf16 division
         # for bf16 activations), not by a multiply with 1 / keep_prob
         kp = float(torch.tensor(keep, dtype=x.dtype))

@@ -180,8 +180,11 @@ class Adam(Optimizer):
         self.nu = {k: torch.zeros_like(p) for k, p in self.params.items()}
 
     def _bias_correction(self, decay: float) -> float:
-        # f32, as optax computes 1 - decay**count
-        return float(_F32(1) - _F32(decay) ** np.int32(self.count))
+        # 1 - decay**count in f32, as optax computes it (NumPy 2 would
+        # promote an f32 base under an int32 power to f64)
+        f32 = torch.float32
+        return float(1 - torch.tensor(decay, dtype=f32)
+                     ** torch.tensor(float(self.count), dtype=f32))
 
     def direction(self, names, grads):
         bc1 = self._bias_correction(self.b1)

@@ -35,10 +35,15 @@ step never waits for the device: metrics come back as device tensors,
 and dropout masks and re-sampling keys are drawn on the device from
 generators seeded by (seed, step), so a resumed run draws the same ones.
 
-Left out, and refused where a config asks for them: sharded layouts and
-non-f32 parameters. In-batch negatives on a baseline arch raise
-ValueError, as the reference's step does: those archs score the positive
-alone.
+Under a (data, rows) mesh (`sharding.bringup`) a sharded config trains
+step by step: `init_state(..., mesh=mesh)` row-shards the tables and
+their optimizer state, and `train_step` takes this rank's rows of the
+global batch and gives what the unsharded step gives on the whole batch.
+
+Left out, and refused where a config asks for them: the driver,
+checkpoints and serving under a mesh (sharding part 2), and non-f32
+parameters. In-batch negatives on a baseline arch raise ValueError, as
+the reference's step does: those archs score the positive alone.
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .checkpoint import CheckpointManager, apply_restore
 from .config import PRESETS, Config, apply_overrides
@@ -63,12 +69,15 @@ from .graph import (DeviceGraph, device_graph, gather_candidate_batch,
                     subsample_neighbors)
 from .metrics import (F16_BINS, auc, hist_auc, rank_sum_keys, ranking_sums,
                       score_hists)
+from .nn.embed import EmbeddingTables
 from .nn.model import (build_model, check_config, check_device,
                        stored_fanouts)
 from .nn.scorer import bce_loss
 from .optim import Optimizer, is_table, make_optimizer
 from .params import cast_tables, init_params
 from .profiling import maybe_profile
+from .sharding import (Mesh, all_gather_world, make_lookup_fn,
+                       shard_state, state_spec)
 
 
 def item_importance_weights(train_split, num_items: int) -> np.ndarray:
@@ -93,27 +102,29 @@ def table_l2(model: torch.nn.Module) -> torch.Tensor:
 class TrainState:
     """The model (f32 master weights), its optimizer and the host-side
     step counter; `generator` draws the in-batch shifts or the uniform
-    negatives a step is not given."""
+    negatives a step is not given. Under a `mesh` the tables and their
+    optimizer state are this rank's row blocks."""
 
     cfg: Config
     model: torch.nn.Module
     opt: Optimizer
     generator: torch.Generator
     step: int = 0
+    mesh: Optional[Mesh] = None
 
     @property
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
 
 
-def check_trainable(cfg: Config) -> None:
+def check_trainable(cfg: Config, mesh: Optional[Mesh] = None) -> None:
     """Raise NotImplementedError for what the port does not train (a
-    sharded layout, non-f32 parameters: `check_config`), and ValueError
-    for in-batch negatives on a baseline arch: its score_candidates
-    ignores the shifts and scores the positive alone, so its [B, 1]
-    logits cannot meet [B, 1 + k] labels (the reference's step raises on
-    the same shapes)."""
-    check_config(cfg)
+    sharded layout without a mesh, non-f32 parameters: `check_config`),
+    and ValueError for in-batch negatives on a baseline arch: its
+    score_candidates ignores the shifts and scores the positive alone, so
+    its [B, 1] logits cannot meet [B, 1 + k] labels (the reference's step
+    raises on the same shapes)."""
+    check_config(cfg, mesh)
     if cfg.model.arch != "score" and cfg.data.train_neg_mode != "uniform":
         raise ValueError(
             f"arch {cfg.model.arch!r} scores no in-batch negatives "
@@ -123,7 +134,8 @@ def check_trainable(cfg: Config) -> None:
 def init_state(cfg: Config, num_users: int, num_items: int,
                state_dict: Mapping[str, torch.Tensor], device="cuda",
                opt_state: Optional[Mapping] = None,
-               steps_per_epoch: int = 0) -> TrainState:
+               steps_per_epoch: int = 0,
+               mesh: Optional[Mesh] = None) -> TrainState:
     """A TrainState on `device` from f32 weights (`params.init_params` or
     `params.from_flax`), and optionally an optimizer state to start from
     ({count, and the optimizer's state dicts}: a checkpoint's, or
@@ -131,10 +143,19 @@ def init_state(cfg: Config, num_users: int, num_items: int,
     `count`, as the reference's restored TrainState carries its step, so
     stride-K table updates and the schedule fall on the same steps.
     `steps_per_epoch` sets a cosine schedule's horizon when
-    cfg.train.decay_steps is 0, as the reference's init_state does."""
-    check_trainable(cfg)
+    cfg.train.decay_steps is 0, as the reference's init_state does.
+
+    Under a `mesh` (whose shape is cfg.sharding's) the model looks its
+    tables up through cfg.sharding.lookup_mode's exchange, and the whole
+    weights and optimizer state given are cut to this rank's row blocks
+    (`sharding.shard_state`)."""
+    check_trainable(cfg, mesh)
     check_device(cfg, device)
-    model = build_model(cfg, num_users, num_items)
+    lookup_fn = None
+    if mesh is not None:
+        lookup_fn = make_lookup_fn(mesh, cfg.sharding.lookup_mode,
+                                   cfg.sharding.a2a_capacity)
+    model = build_model(cfg, num_users, num_items, lookup_fn)
     model.load_state_dict({k: v.to(device=device, dtype=torch.float32)
                            for k, v in state_dict.items()}, assign=True)
     model.train()
@@ -142,9 +163,11 @@ def init_state(cfg: Config, num_users: int, num_items: int,
                          steps_per_epoch)
     if opt_state is not None:
         opt.load_state(**opt_state)
-    return TrainState(cfg=cfg, model=model, opt=opt,
-                      generator=torch.Generator().manual_seed(cfg.train.seed),
-                      step=opt.count)
+    state = TrainState(cfg=cfg, model=model, opt=opt,
+                       generator=torch.Generator().manual_seed(
+                           cfg.train.seed),
+                       step=opt.count)
+    return state if mesh is None else shard_state(mesh, state)
 
 
 def draw_shifts(generator: torch.Generator, k: int, B: int) -> List[int]:
@@ -208,13 +231,19 @@ def _as_device(x, device) -> torch.Tensor:
     return x.to(device=device, dtype=torch.int32)
 
 
-def _resample(cfg: Config, mb: dict, keys, seed: int, step: int) -> dict:
+def _resample(cfg: Config, mb: dict, keys, seed: int, step: int,
+              rows: slice = slice(None), n: Optional[int] = None,
+              cand_rows=None) -> dict:
     """DataConfig.neighbor_resample: each step draws a fresh uniform
     subset of the stored histories (u_hist [B, T, S], i_hist [B, C, T, S])
     down to the model's fan-outs, on the device, as the reference's
     _resample does after its gather. `keys` (u_keys, i_keys) are uniform
-    draws of the histories' shapes; None draws them from the step's
-    re-sampling generator."""
+    draws of the whole batch's histories ([n, ...]; n defaults to mb's
+    rows); None draws them from the step's re-sampling generator. This
+    rank's keys are rows `rows` of them (default all); with `cand_rows`
+    ([B, C] batch rows: the sharded step's in-batch candidates) the item
+    side's are those rows' positives' keys, as the unsharded step
+    re-samples the positives' histories before its rolls."""
     if not cfg.data.neighbor_resample:
         return mb
     mb = dict(mb)
@@ -223,15 +252,82 @@ def _resample(cfg: Config, mb: dict, keys, seed: int, step: int) -> dict:
         sides.append(("i_hist", "i_cnt", cfg.data.item_fanout))
     gen = None
     for j, (hist, cnt, k) in enumerate(sides):
+        h = mb[hist]
+        rolled = j == 1 and cand_rows is not None
         if keys is not None:
-            key = keys[j].to(mb[hist].device)
+            key = keys[j].to(h.device)
         else:
             if gen is None:
-                gen = _step_generator(seed, step, 2, mb[hist].device)
-            key = torch.rand(mb[hist].shape, generator=gen,
-                             device=mb[hist].device)
-        mb[hist], mb[cnt] = subsample_neighbors(mb[hist], mb[cnt], k, key)
+                gen = _step_generator(seed, step, 2, h.device)
+            rows_all = n or h.shape[0]
+            shape = ((rows_all, 1, *h.shape[2:]) if rolled
+                     else (rows_all, *h.shape[1:]))
+            key = torch.rand(shape, generator=gen, device=h.device)
+        key = key[cand_rows, 0] if rolled else key[rows]
+        mb[hist], mb[cnt] = subsample_neighbors(h, mb[cnt], k, key)
     return mb
+
+
+def _dropout_masks(cfg: Config, seed: int, step: int, n: int, C: int,
+                   device) -> List[torch.Tensor]:
+    """The scorer's dropout masks of a step, one [n, C, width] bool mask a
+    hidden layer, from the step's dropout generator (keep where a uniform
+    draw falls below the keep probability)."""
+    gen = _step_generator(seed, step, 1, device)
+    keep = 1.0 - cfg.model.dropout
+    return [torch.rand(n, C, w, generator=gen, device=device) < keep
+            for w in cfg.model.mlp_dims]
+
+
+def _bce_share(logits: torch.Tensor, labels: torch.Tensor,
+               weights: Optional[torch.Tensor]) -> torch.Tensor:
+    """This rank's share of the whole batch's weighted BCE, sum(l * w) /
+    max(sum(w), 1) with the denominator summed over the world (it carries
+    no gradient): the shares add up to the loss, and their gradients to
+    its gradient."""
+    ell = torch.nn.functional.binary_cross_entropy_with_logits(
+        logits, labels, reduction="none")
+    w = torch.ones_like(ell) if weights is None else weights
+    den = w.sum()
+    dist.all_reduce(den)
+    return (ell * w).sum() / den.clamp_min(1.0)
+
+
+def _sum_grads(mesh: Mesh, params: Mapping[str, torch.Tensor],
+               names: Sequence[str],
+               grads: Sequence[Optional[torch.Tensor]]) -> list:
+    """The whole batch's gradients from each rank's: dense parameters
+    summed over the world, table blocks over the data group (the exchange
+    has already summed the rows group's), each group's in one flat
+    all-reduce. A gradient a rank does not reach is its zeros: a table
+    only the L2 reaches has one on data block 0 alone."""
+    grads = [torch.zeros_like(params[k]) if g is None else g
+             for k, g in zip(names, grads)]
+    for sharded, group in ((False, None), (True, mesh.data_group)):
+        idx = [j for j, k in enumerate(names)
+               if bool(state_spec(k, params[k])) == sharded]
+        if not idx:
+            continue
+        flat = torch.cat([grads[j].reshape(-1) for j in idx])
+        dist.all_reduce(flat, group=group)
+        lo = 0
+        for j in idx:
+            size = grads[j].numel()
+            grads[j] = flat[lo:lo + size].view_as(grads[j])
+            lo += size
+    return grads
+
+
+def take_overflow(model: torch.nn.Module) -> Optional[torch.Tensor]:
+    """The a2a lookups' overflow counts since the last call, summed over
+    the model's tables (None where no table recorded one), and reset."""
+    total = None
+    for m in model.modules():
+        if isinstance(m, EmbeddingTables):
+            if m.overflow is not None:
+                total = m.overflow if total is None else total + m.overflow
+            m.overflow = None
+    return total
 
 
 def train_step(state: TrainState, graph: DeviceGraph, batch: Mapping,
@@ -258,40 +354,67 @@ def train_step(state: TrainState, graph: DeviceGraph, batch: Mapping,
     to cfg.data's fan-outs (`resample_keys`: the user and item sides'
     uniform keys; drawn on the device if None). With cfg.model.dropout >
     0 the scorer drops hidden activations (`dropout_masks`: one bool mask
-    a hidden layer; drawn on the device if None); the baseline archs have
-    no scorer and ignore it, as the reference's do.
+    a hidden layer, [B, C, width]; drawn on the device if None); the
+    baseline archs have no scorer and ignore it, as the reference's do.
+
+    Under state.mesh, `batch` is this rank's rows of a global batch of
+    B x world examples (its rank's block), and every draw above, given
+    or drawn, is the global batch's (shifts in [1, B x world), negatives,
+    masks and keys of its shape), of which the rank keeps its rows. The
+    in-batch rolls cross ranks: the global positives' ids are
+    all-gathered and each row scores [positive | rolled positives] as
+    candidates. The step equals the unsharded step on the global batch:
+    the loss is the global weighted mean, the L2 counts each table row
+    once, the gradients are summed (dense over the world, table blocks
+    over the data group), and the metrics (with the batch AUC's logits)
+    are the global batch's, with `a2a_overflow`, the step's lookups'
+    summed overflow.
 
     Tables and their optimizer state update only on steps with step %
     table_update_every == 0; on the others no table gradient is computed
     at all (the reference's stop_gradient). Returns the state (updated in
     place) and {loss, batch_auc} (or {loss, logits, weights} without AUC),
     as device tensors."""
-    cfg, model = state.cfg, state.model
+    cfg, model, mesh = state.cfg, state.model, state.mesh
     dev = state.device
     k = cfg.data.num_train_neg
     u, i, t = (_as_device(batch[key], dev) for key in ("user", "item",
                                                         "slot"))
     B = u.shape[0]
+    # this rank's rows of the n-example batch the draws are made for
+    n = B * (1 if mesh is None else mesh.size)
+    lo = 0 if mesh is None else B * mesh.rank
+    rows = slice(lo, lo + B)
     labels = torch.cat([torch.ones(B, 1, device=dev),
                         torch.zeros(B, k, device=dev)], dim=1)
+    neg_shift = cand_rows = None
     if cfg.data.train_neg_mode == "uniform":
         if negatives is None:
-            negatives = draw_negatives(state.generator, B, k,
+            negatives = draw_negatives(state.generator, n, k,
                                        model.num_items)
         neg = _as_device(negatives, dev)
-        if neg.shape != (B, k):
+        if neg.shape != (n, k):
             raise ValueError(f"negatives of shape {tuple(neg.shape)}; "
-                             f"expected {(B, k)}")
-        neg = resample_collisions(neg, i[:, None], model.num_items)
+                             f"expected {(n, k)}")
+        neg = resample_collisions(neg[rows], i[:, None], model.num_items)
         cand = torch.cat([i[:, None], neg], dim=1)
-        shifts = weights = None
+        weights = None
     else:
         if shifts is None:
-            shifts = draw_shifts(state.generator, k, B)
+            shifts = draw_shifts(state.generator, k, n)
         shifts = [int(s) for s in shifts]
         if len(shifts) != k:
             raise ValueError(f"{len(shifts)} shifts for {k} negatives")
-        negs = torch.stack([torch.roll(i, -s, 0) for s in shifts], dim=1)
+        if mesh is None:
+            negs = torch.stack([torch.roll(i, -s, 0) for s in shifts], dim=1)
+            cand, neg_shift = i[:, None], shifts
+        else:
+            # the rolls cross ranks: roll the ids before the lookups
+            offsets = torch.tensor([0] + shifts, device=dev)
+            cand_rows = (torch.arange(lo, lo + B, device=dev)[:, None]
+                         + offsets) % n
+            cand = all_gather_world(mesh, i)[cand_rows]
+            negs = cand[:, 1:]
         # a rolled positive equal to the example's own positive drops out
         neg_w = (negs != i[:, None]).float()
         if cfg.data.train_neg_mode == "inbatch_iw":
@@ -300,26 +423,33 @@ def train_step(state: TrainState, graph: DeviceGraph, batch: Mapping,
                                  "item_importance_weights(ds.train, ...)")
             neg_w = neg_w * neg_iw.to(dev)[negs.long()]
         weights = torch.cat([torch.ones(B, 1, device=dev), neg_w], dim=1)
-        cand = i[:, None]
 
     stride = cfg.train.table_update_every
     full = stride <= 1 or state.step % stride == 0
     names = [n for n, _ in model.named_parameters() if full or not is_table(n)]
     mb = _resample(cfg, gather_candidate_batch(graph, u, cand, t,
                                                item_side=model.dual),
-                   resample_keys, cfg.train.seed, state.step)
+                   resample_keys, cfg.train.seed, state.step, rows, n,
+                   cand_rows)
     drop = {}
     if cfg.model.arch == "score" and cfg.model.dropout > 0:
-        drop = dict(dropout_masks=dropout_masks)
         if dropout_masks is None:
-            drop["dropout_generator"] = _step_generator(
-                cfg.train.seed, state.step, 1, dev)
-    logits = model.score_candidates(mb, neg_shift=shifts, **drop)
-    loss = bce_loss(logits, labels, weights)
+            dropout_masks = _dropout_masks(cfg, cfg.train.seed, state.step,
+                                           n, 1 + k, dev)
+        drop = dict(dropout_masks=[m[rows] for m in dropout_masks])
+    if mesh is not None:
+        take_overflow(model)    # counts of lookups made outside a step
+    logits = model.score_candidates(mb, neg_shift=neg_shift, **drop)
+    if mesh is None:
+        loss = bce_loss(logits, labels, weights)
+    else:
+        loss = _bce_share(logits, labels, weights)
     if weights is None:     # the monitoring AUC's weights
         weights = torch.ones_like(labels)
     total = loss
-    if full and cfg.train.l2_emb > 0:
+    # under a mesh each table row's L2 enters once: on data block 0
+    if (full and cfg.train.l2_emb > 0
+            and (mesh is None or mesh.data_index == 0)):
         total = loss + cfg.train.l2_emb * table_l2(model)
     params = dict(model.named_parameters())
     # a parameter the step does not reach (a bias table's other side with
@@ -327,10 +457,21 @@ def train_step(state: TrainState, graph: DeviceGraph, batch: Mapping,
     # gradient here, and the optimizer takes it as zeros, as optax does
     grads = (torch.autograd.grad(total, [params[n] for n in names],
                                  allow_unused=True) if names else ())
+    if mesh is not None:
+        grads = _sum_grads(mesh, params, names, grads)
     state.opt.step(names, grads)
     state.step += 1
     out = {"loss": loss.detach()}
     logits = logits.detach()
+    if mesh is not None:
+        dist.all_reduce(out["loss"])        # the shares add up to the loss
+        ovf = take_overflow(model)
+        out["a2a_overflow"] = (torch.zeros((), dtype=torch.int64, device=dev)
+                               if ovf is None else ovf)
+        if with_auc:
+            logits, weights = (all_gather_world(mesh, x)
+                               for x in (logits, weights))
+            labels = labels.repeat(mesh.size, 1)
     if with_auc:
         out["batch_auc"] = auc(logits.reshape(-1), labels.reshape(-1),
                                weights.reshape(-1))
@@ -349,21 +490,31 @@ def train_loop(state: TrainState, graph: DeviceGraph,
     raw uniform negatives (the same results as K sequential calls); the
     batch AUC once, from the last step's logits, as the reference's fused
     loop reports it. Returns the state and {loss [K], batch_auc [1]} as
-    device tensors."""
+    device tensors, and under a mesh `a2a_overflow` [1], the chunk's
+    summed overflow."""
     if not batches:
         raise ValueError("train_loop needs at least one batch")
-    losses = []
+    losses, overflow = [], []
     for j, batch in enumerate(batches):
         shifts = None if shifts_list is None else shifts_list[j]
         negs = None if negatives_list is None else negatives_list[j]
         state, m = train_step(state, graph, batch, shifts, neg_iw,
                               with_auc=False, negatives=negs)
         losses.append(m["loss"])
-    labels = torch.zeros_like(m["logits"])
+        if "a2a_overflow" in m:
+            overflow.append(m["a2a_overflow"])
+    logits, weights = m["logits"], m["weights"]
+    if state.mesh is not None:
+        logits, weights = (all_gather_world(state.mesh, x)
+                           for x in (logits, weights))
+    labels = torch.zeros_like(logits)
     labels[:, 0] = 1.0
-    batch_auc = auc(m["logits"].reshape(-1), labels.reshape(-1),
-                    m["weights"].reshape(-1))
-    return state, {"loss": torch.stack(losses), "batch_auc": batch_auc[None]}
+    batch_auc = auc(logits.reshape(-1), labels.reshape(-1),
+                    weights.reshape(-1))
+    out = {"loss": torch.stack(losses), "batch_auc": batch_auc[None]}
+    if overflow:
+        out["a2a_overflow"] = torch.stack(overflow).sum()[None]
+    return state, out
 
 
 def make_eval_step(model: torch.nn.Module) -> Callable:

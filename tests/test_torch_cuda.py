@@ -1130,3 +1130,49 @@ def test_resampling_steps_on_card_match_cpu(cuda):
     a = _trainer_steps(cfg, ds, cuda, batches)
     b = _trainer_steps(cfg, ds, cuda, batches)
     assert a[0][0] == b[0][0]
+
+
+@pytest.mark.parametrize("mode", ["a2a", "psum"])
+def test_sharded_lookup_in_a_one_rank_nccl_world(cuda, tmp_path, mode):
+    """The a2a (at its exact capacity and at one below the unique count)
+    and psum lookups in a one-rank NCCL world, its exchanges over NCCL:
+    rows bit-equal to gather_rows, the table gradient within 1e-5
+    relative to the largest value of the plain scatter-add's (f32 atomics
+    add in no fixed order); the gather and scatter-add kernels launched,
+    and the overflow the uniques past the capacity."""
+    import torch.distributed as dist
+    from score_tpu_torch import sharding
+    mesh, fn = sharding.bringup(None, init_method=f"file://{tmp_path}/st",
+                                world_size=1, rank=0, device="cuda")
+    try:
+        assert fn is None and mesh.device.type == "cuda"
+        rng = np.random.default_rng(11)
+        table = torch.from_numpy(rng.normal(size=(1000, 32)).astype(
+            np.float32)).to(cuda).requires_grad_(True)
+        ids = torch.from_numpy(rng.integers(0, 1000, (64, 9, 10)).astype(
+            np.int32)).to(cuda)
+        w = torch.randn(64, 9, 10, 32, device=cuda)
+        want = tgather.gather_rows(table.detach(), ids)
+        g_want = tgather.scatter_add_rows_plain(ids.cpu(), w.cpu(), 1000)
+        n_uniq = int(torch.unique(ids).numel())
+        for capacity in ((0, n_uniq - 1) if mode == "a2a" else (0,)):
+            before = (tgather.gather_rows.launches,
+                      tgather.scatter_add_rows.launches)
+            if mode == "a2a":
+                out, ovf = sharding.a2a_lookup(mesh, table, ids, capacity,
+                                               with_overflow=True)
+                assert int(ovf) == (1 if capacity else 0)
+            else:
+                out = sharding.psum_lookup(mesh, table, ids)
+            (g,) = torch.autograd.grad((out * w).sum(), [table])
+            torch.cuda.synchronize()
+            assert tgather.gather_rows.launches > before[0]
+            assert tgather.scatter_add_rows.launches > before[1]
+            if capacity:
+                continue        # aliased rows: only the count is right
+            assert torch.equal(out, want)
+            scale = max(g_want.abs().max().item(), 1.0)
+            torch.testing.assert_close(g.cpu(), g_want, rtol=1e-5,
+                                       atol=1e-5 * scale)
+    finally:
+        dist.destroy_process_group()

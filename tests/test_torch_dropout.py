@@ -114,7 +114,7 @@ def test_bf16_keep_division_is_flax_s():
     x = torch.linspace(0.01, 4.0, 4001).bfloat16()
     s = Scorer(1, (1,), torch.bfloat16, dropout=0.1)
     s.train()
-    got = s._drop(x, torch.ones_like(x, dtype=torch.bool), None)
+    got = s._drop(x, torch.ones_like(x, dtype=torch.bool))
     want = np.asarray(jnp.asarray(x.float().numpy(), jnp.bfloat16) / 0.9)
     np.testing.assert_array_equal(got.float().numpy(),
                                   want.astype(np.float32))

@@ -157,10 +157,31 @@ test_line = [l for l in cli.getvalue().splitlines() if l.startswith("test:")]
 assert len(test_line) == 1, cli.getvalue()
 assert os.path.exists(os.path.join(work, "ck", "best.pt"))
 
+# the sharding module and the sharding tests' world worker; an a2a step in
+# a gloo world of one rank
+import torch.distributed as dist
+
+sys.path.insert(0, "tests")
+import _torch_shard_worker
+from score_tpu_torch.config import ShardingConfig
+from score_tpu_torch.sharding import bringup
+
+mesh, _ = bringup(None, init_method="file://" + os.path.join(work, "store"),
+                  world_size=1, rank=0, device="cpu")
+scfg = cfg.replace(sharding=ShardingConfig(lookup_mode="a2a"))
+sstate = init_state(scfg, ds.num_users, ds.num_items, sd, device="cpu",
+                    mesh=mesh)
+sstate, m = train_step(sstate, graph, next(TargetIterator(ds.train, 32,
+                                                          seed=0)),
+                       neg_iw=neg_iw)
+assert int(m["a2a_overflow"]) == 0 and np.isfinite(m["loss"].item()), m
+dist.destroy_process_group()
+
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not loaded, loaded
 print("SERVED", scores.tolist(), "TRAINED", losses, "EVALUATED", metrics,
-      "BASELINE", bscores.tolist(), blosses, "CLI", test_line[0])
+      "BASELINE", bscores.tolist(), blosses, "CLI", test_line[0],
+      "SHARDED", sstate.step)
 """
 
 
@@ -220,6 +241,7 @@ def test_port_serves_and_trains_without_jax(tmp_path):
     assert "EVALUATED" in proc.stdout, proc.stdout
     assert "BASELINE" in proc.stdout, proc.stdout
     assert "CLI test: auc" in proc.stdout, proc.stdout
+    assert "SHARDED 1" in proc.stdout, proc.stdout
 
 
 @pytest.mark.parametrize("name", ["configs0", "configs1", "configs2",

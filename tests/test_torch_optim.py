@@ -179,6 +179,26 @@ def test_schedule_matches_optax(kw):
     assert sched(horizon - 1) > 0.0
 
 
+@pytest.mark.parametrize("decay", [0.9, 0.999])
+def test_adam_bias_correction_is_optax_f32(decay):
+    """Adam's bias correction 1 - decay**count against optax's, computed
+    as optax computes it (an int32 count, f32 arithmetic under jit), bit
+    for bit at every count from 1 to 4000. An f64 power rounded once to
+    f32 differs at some of them (with b2 = 0.999 at every count 2-9)."""
+    counts = np.arange(1, 4001, dtype=np.int32)
+    want = np.asarray(jax.jit(jax.vmap(lambda c: 1 - decay ** c))(counts))
+    assert want.dtype == np.float32
+    opt = toptim.Adam({"w": torch.zeros(1)}, 1e-3)
+    got = np.empty_like(want)
+    for j, c in enumerate(counts):
+        opt.count = int(c)
+        got[j] = opt._bias_correction(decay)
+    bad = np.flatnonzero(got != want)
+    assert bad.size == 0, (f"{bad.size} counts differ, first "
+                           f"{counts[bad[:5]]}: {got[bad[:5]]} vs "
+                           f"{want[bad[:5]]}")
+
+
 def test_constant_rate_keeps_no_schedule():
     opt = toptim.make_optimizer(configs3(), {"w": torch.zeros(1)}, 5)
     assert opt.schedule is None and opt.learning_rate() == 1e-3
