@@ -166,9 +166,20 @@ fails or no CUDA device is present.
    tolerance (the tables part: the local step sums a rolled negative's
    gradient in bf16, the sharded one in f32), then 20 steps of each in
    turns (local, a2a, a2a, local, 5 steps each), the gather and
-   scatter-add launched under the sharded steps, each profiled; last, an
-   a2a step at a2a_capacity 1000, whose a2a_overflow must equal the
-   uniques past it that the host counts in its four lookups' ids.
+   scatter-add launched under the sharded steps, each profiled; an a2a
+   step at a2a_capacity 1000, whose a2a_overflow must equal the uniques
+   past it that the host counts in its four lookups' ids. Then
+   configs4(1, 1) in the same world (a2a, sum pool, in-batch IW,
+   B=4096, bf16, stride 2 at 2x) through `train(..., mesh=mesh)` for one
+   epoch on the bench dataset, the graph row-sharded and its histories
+   fetched through the exchange, val every 100 steps on 8192 targets,
+   sharded `latest`/`best` (the sum pool's kernels launched, the run
+   raising on any a2a_overflow): steps/s, s a val, test eval s; `latest`
+   restored under the mesh bit-equal to the live state; a timed sharded
+   save and restore and each file's bytes; `from_checkpoint('best',
+   mesh=mesh)` against a whole read of `best`, scores bit-equal at 1 x
+   101 and 16 x 4096, `score`'s p50 of both in turns and kernels a
+   call; last `entry.dryrun_multichip(1)` in a process of its own.
 
 The [roster] and [trainer] summary lines give each run's step ms,
 kernels a step, idle share and val AUC. The line before the last lists each kernel with
@@ -2397,6 +2408,155 @@ def _host_overflow(mb: dict, capacity: int) -> int:
     return total
 
 
+SHARD_DRIVER = dict(num_epochs=1, eval_every_steps=100,
+                    eval_max_targets=EVAL_TARGETS)
+SERVE_TURN_CALLS = 25          # `score` calls a turn, 4 turns
+
+
+def _state_tensors(state) -> dict:
+    """A TrainState's parameters and optimizer state, by name."""
+    out = {f"param {k}": v for k, v in state.model.state_dict().items()}
+    for key in state.opt.state_keys:
+        out.update({f"{key} {k}": v
+                    for k, v in getattr(state.opt, key).items()})
+    return out
+
+
+def _shard_driver(card: str, ds, dev, mesh, work: str) -> dict:
+    """configs4(1, 1) at the bench width (a2a, sum pool, in-batch IW,
+    B=4096, bf16, stride 2 at 2x) through `train(..., mesh=mesh)` for one
+    epoch with sharded checkpoints; `latest` restored under the mesh
+    bit-equal to the live state; a timed save and restore with each
+    file's bytes; `best` served under the mesh and read whole, scores
+    bit-equal, `score`'s p50 of both in turns; `entry.dryrun_multichip(1)`
+    in a process of its own."""
+    from score_tpu_torch import entry
+    from score_tpu_torch.checkpoint import CheckpointManager, apply_restore
+    from score_tpu_torch.config import configs4
+    from score_tpu_torch.params import init_params
+    from score_tpu_torch.serve import ScoringService
+    from score_tpu_torch.train import init_state, train
+    ck = os.path.join(work, "ck")
+    base = bench_config("bfloat16")
+    cfg = base.replace(sharding=configs4(1, 1).sharding,
+                       train=dataclasses.replace(base.train,
+                                                 checkpoint_dir=ck,
+                                                 **SHARD_DRIVER))
+    spe = len(ds.train) // BATCH
+    fns = reset_counts()
+    out = train(cfg, ds, device=dev, mesh=mesh)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in fns.items()}
+    log(f"[shard] launches in the sharded driver's run: {launches}")
+    check_launches("[shard] driver", launches, TRAIN_KERNELS["sum"])
+    tm = out["timing"]
+    vals = out["history"]
+    if (out["steps_run"] != spe or not vals
+            or not all(np.isfinite(r["auc"]) for r in vals)
+            or not np.isfinite(out["test"]["auc"])):
+        raise AssertionError(f"[shard] driver ran {out['steps_run']} of "
+                             f"{spe} steps; vals {vals}, test {out['test']}")
+    log(f"[shard] train(configs4(1, 1), a2a, mesh=mesh), bf16 B={BATCH} "
+        f"stride 2: {tm['steps']} steps in {tm['train_s']:.3f} s, "
+        f"{tm['steps'] / tm['train_s']:.2f} steps/s; {len(tm['val_s'])} "
+        f"vals of {EVAL_TARGETS} targets, "
+        f"{statistics.mean(tm['val_s']):.3f} s each "
+        f"({[round(v, 3) for v in tm['val_s']]}); test eval of "
+        f"{len(ds.test)} targets {tm['test_s']:.3f} s; a2a_overflow 0 in "
+        f"every chunk (overflow_action raise) [{card}]")
+    log(f"[shard] val auc by step "
+        f"{[(r['step'], round(r['auc'], 4)) for r in vals]}; best "
+        f"{out['best_val_auc']:.4f} at step {out['best_step']}; test auc "
+        f"{out['test']['auc']:.4f}")
+
+    # `latest` (the epoch's last val, its last step) against the live state
+    live = out["state"]
+    fresh = init_state(cfg, ds.num_users, ds.num_items,
+                       init_params(cfg, ds.num_users, ds.num_items,
+                                   torch.Generator().manual_seed(SEED + 9)),
+                       device=dev, mesh=mesh)
+    apply_restore(fresh, CheckpointManager(ck, mesh).restore("latest",
+                                                             fresh))
+    a, b = _state_tensors(live), _state_tensors(fresh)
+    bad = [k for k in a if not torch.equal(a[k], b[k])]
+    if set(a) != set(b) or bad or fresh.step != live.step:
+        raise AssertionError(f"[shard] restored latest differs: {bad}")
+    log(f"[shard] latest restored under the mesh: {len(a)} blocks and "
+        f"optimizer states bit-equal to the live ones, step {fresh.step}")
+    del fresh
+
+    # a save and a restore, timed, and the bytes of each file
+    mgr = CheckpointManager(os.path.join(work, "timed"), mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save("latest", live, (1, 0), out["best_val_auc"], live.step)
+    snap_s = time.perf_counter() - t0
+    mgr.wait()
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored = mgr.restore("latest", live)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    files = {os.path.relpath(f, mgr.directory): os.path.getsize(f)
+             for f in mgr.files("latest")}
+    ck_files = {name: {os.path.relpath(f, ck): os.path.getsize(f)
+                       for f in CheckpointManager(ck, mesh).files(name)}
+                for name in ("latest", "best")}
+    log(f"[shard] sharded checkpoint: save {save_s:.3f} s ({snap_s:.3f} s "
+        f"until the step may go on), restore {restore_s:.3f} s; bytes a "
+        f"file {files}; the run's {ck_files} [{card}]")
+    del restored, live, out
+    torch.cuda.empty_cache()
+
+    # `best` served under the mesh and read whole
+    fns = reset_counts()
+    sharded = ScoringService.from_checkpoint(cfg, ds, ck, "best",
+                                             device=dev, mesh=mesh)
+    whole = ScoringService.from_checkpoint(cfg, ds, ck, "best", device=dev)
+    rng = np.random.default_rng(SEED + 8)
+    user = int(ds.test.user[0])
+    items = rng.integers(1, ds.num_items + 1, 101).astype(np.int32)
+    users16 = np.unique(ds.test.user)[:ROWS].astype(np.int32)
+    wide = rng.integers(1, ds.num_items + 1, (ROWS, WIDE)).astype(np.int32)
+    for what, got, want in (
+            ("1 x 101", sharded.score(user, items),
+             whole.score(user, items)),
+            (f"{ROWS} x {WIDE}", sharded.score_batch(users16, wide),
+             whole.score_batch(users16, wide))):
+        if not np.array_equal(got, want):
+            raise AssertionError(
+                f"[shard] mesh serving {what} differs from the whole read: "
+                f"max |diff| {np.abs(got - want).max():.3e}")
+    launches = {k: fn.launches for k, fn in fns.items()}
+    check_launches("[shard] serving", launches, SERVE_KERNELS["sum"])
+    times = {"mesh": [], "whole": []}
+    for name in ("whole", "mesh", "mesh", "whole"):
+        svc = sharded if name == "mesh" else whole
+        for _ in range(SERVE_TURN_CALLS):
+            t0 = time.perf_counter()
+            svc.score(user, items)
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    p50 = {k: statistics.median(v) for k, v in times.items()}
+    kern = {k: _device_kernels(lambda s=s: s.score(user, items))[0]
+            for k, s in (("mesh", sharded), ("whole", whole))}
+    log(f"[shard] from_checkpoint('best', mesh=mesh) against the whole "
+        f"read: scores bit-equal at 1 x 101 and {ROWS} x {WIDE}; score "
+        f"p50 in turns (whole, mesh, mesh, whole x {SERVE_TURN_CALLS}) "
+        f"mesh {p50['mesh']:.3f} ms / whole {p50['whole']:.3f} ms, "
+        f"kernels a call {kern['mesh']:.1f} / {kern['whole']:.1f} [{card}]")
+    del sharded, whole
+    torch.cuda.empty_cache()
+
+    # the entry point's dry run, a world of one in its own process
+    t0 = time.perf_counter()
+    dry = entry.dryrun_multichip(1, device="cuda")
+    log(f"[shard] entry.dryrun_multichip(1): psum step and 3 a2a steps, "
+        f"losses {[round(x, 6) for x in dry]} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return dict(steps_per_s=tm["steps"] / tm["train_s"], save_s=save_s,
+                restore_s=restore_s, files=files, p50=p50)
+
+
 def phase_shard(card: str, ds, dev) -> dict:
     """Phase 10 ([shard]): a one-rank NCCL world through
     `sharding.bringup`; the a2a and psum lookups at the training shape
@@ -2404,7 +2564,8 @@ def phase_shard(card: str, ds, dev) -> dict:
     stride 2 at 2x) trained under the mesh with a2a lookups against the
     local step, then timed in turns with it and profiled; an a2a step at
     a capacity below the unique ids, its overflow against the host's
-    count."""
+    count; then configs4(1, 1)'s driver, checkpoints, serving and the
+    entry point's dry run (`_shard_driver`)."""
     import torch.distributed as dist
     from score_tpu_torch.config import ShardingConfig
     from score_tpu_torch.graph import device_graph, gather_candidate_batch
@@ -2567,6 +2728,7 @@ def phase_shard(card: str, ds, dev) -> dict:
             out["overflow"] = got_ovf
             del sharded
             torch.cuda.empty_cache()
+            out["driver"] = _shard_driver(card, ds, dev, mesh, tmp)
         finally:
             dist.destroy_process_group()
     log(f"[shard] phase {time.perf_counter() - t_phase:.1f} s [{card}]")

@@ -3,7 +3,10 @@
 Counterpart of score_tpu/graph.py. The dense padded adjacency lives on the
 device, node-major (a node's full history [T, k] is one contiguous row), and
 the history of a batch of targets is one row gather per side through the
-gather kernel. The slot-validity mask is `t < t*`, so a target never sees
+gather kernel. Under a mesh the graph is row-sharded
+(`sharding.shard_graph`) and each side's rows come from their owners
+through the exact a2a exchange (`sharding.graph_rows`), one exchange a
+side. The slot-validity mask is `t < t*`, so a target never sees
 its own or future slots. `subsample_neighbors` re-draws a narrower
 uniform subset of a stored history (DataConfig.neighbor_resample).
 """
@@ -18,6 +21,7 @@ import torch
 
 from .data.schema import GraphStore
 from .kernels.gather import gather_rows
+from .sharding import ShardedGraph, graph_rows, make_lookup_fn, shard_graph
 
 
 @dataclasses.dataclass
@@ -32,6 +36,14 @@ class DeviceGraph:
     @property
     def num_slots(self) -> int:
         return self.u2i.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.u2i.device
+
+    @property
+    def fanouts(self) -> Tuple[int, int]:
+        return self.u2i.shape[-1], self.i2u.shape[-1]
 
 
 NODE_MULTIPLE = 64
@@ -57,6 +69,17 @@ def device_graph(g: GraphStore, device) -> DeviceGraph:
         i2u=put(g.i2u.transpose(1, 0, 2)), i2u_cnt=put(g.i2u_cnt.T))
 
 
+def mesh_graph(g: GraphStore, mesh, lookup_mode: str):
+    """A GraphStore as a model under `mesh` reads it: row-sharded
+    (`sharding.shard_graph`, cut on the host so only the blocks reach the
+    device) where `lookup_mode` row-shards the tables
+    (`sharding.make_lookup_fn` gives an exchange), else whole on
+    mesh.device, as the data-parallel 'local' tables are."""
+    if make_lookup_fn(mesh, lookup_mode) is None:
+        return device_graph(g, mesh.device)
+    return shard_graph(mesh, device_graph(g, "cpu"))
+
+
 def gather_side(adj: torch.Tensor, cnt: torch.Tensor, nodes: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """adj [N, T, k], cnt [N, T], nodes [...] int32 -> hist [..., T, k]
@@ -64,6 +87,20 @@ def gather_side(adj: torch.Tensor, cnt: torch.Tensor, nodes: torch.Tensor
     N, T, k = adj.shape
     hist = gather_rows(adj.view(N, T * k), nodes).view(*nodes.shape, T, k)
     return hist, gather_rows(cnt, nodes)
+
+
+def _histories(g, side: str, nodes: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The `side` ('user' or 'item') histories of `nodes`: gather_side on a
+    whole graph, or the packed rows through the exchange on a sharded one,
+    split into hist [..., T, k] and hcnt [..., T]."""
+    if isinstance(g, ShardedGraph):
+        rows = graph_rows(g.mesh, getattr(g, side), nodes)
+        T = g.num_slots
+        return rows[..., :-T].unflatten(-1, (T, -1)), rows[..., -T:]
+    if side == "user":
+        return gather_side(g.u2i, g.u2i_cnt, nodes)
+    return gather_side(g.i2u, g.i2u_cnt, nodes)
 
 
 def slot_valid_mask(slots: torch.Tensor, num_slots: int) -> torch.Tensor:
@@ -91,19 +128,20 @@ def subsample_neighbors(hist: torch.Tensor, cnt: torch.Tensor, k: int,
     return torch.take_along_dim(hist, idx, dim=-1), cnt.clamp_max(k)
 
 
-def gather_batch(g: DeviceGraph, users: torch.Tensor, items: torch.Tensor,
+def gather_batch(g, users: torch.Tensor, items: torch.Tensor,
                  slots: torch.Tensor) -> dict:
     """The model's history inputs for B (user, item) targets: users, items
     and slots [B] -> {user, item, slot, u_hist [B, T, n], u_cnt, i_hist
-    [B, T, m], i_cnt, slot_valid}."""
-    u_hist, u_cnt = gather_side(g.u2i, g.u2i_cnt, users)
-    i_hist, i_cnt = gather_side(g.i2u, g.i2u_cnt, items)
+    [B, T, m], i_cnt, slot_valid}. `g` is a DeviceGraph or, under a mesh,
+    a ShardedGraph (likewise below)."""
+    u_hist, u_cnt = _histories(g, "user", users)
+    i_hist, i_cnt = _histories(g, "item", items)
     return dict(user=users, item=items, slot=slots, u_hist=u_hist,
                 u_cnt=u_cnt, i_hist=i_hist, i_cnt=i_cnt,
                 slot_valid=slot_valid_mask(slots, g.num_slots))
 
 
-def gather_candidate_batch(g: DeviceGraph, users: torch.Tensor,
+def gather_candidate_batch(g, users: torch.Tensor,
                            cand: torch.Tensor, slots: torch.Tensor,
                            item_side: bool = True) -> dict:
     """History inputs for B users vs C candidate items each
@@ -111,9 +149,9 @@ def gather_candidate_batch(g: DeviceGraph, users: torch.Tensor,
     user-side gather runs once per user, not per candidate. With
     item_side=False (a model of sides='user', which reads no item-side
     history) the candidates' histories are not gathered."""
-    u_hist, u_cnt = gather_side(g.u2i, g.u2i_cnt, users)
+    u_hist, u_cnt = _histories(g, "user", users)
     out = dict(user=users, slot=slots, u_hist=u_hist, u_cnt=u_cnt, cand=cand,
                slot_valid=slot_valid_mask(slots, g.num_slots))
     if item_side:
-        out["i_hist"], out["i_cnt"] = gather_side(g.i2u, g.i2u_cnt, cand)
+        out["i_hist"], out["i_cnt"] = _histories(g, "item", cand)
     return out

@@ -67,10 +67,9 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def check_config(cfg: Config, mesh=None) -> None:
     """check_supported on the model, and a sharded layout only under a
-    mesh of its shape (`sharding.bringup`): a sharded config must not run
-    as an unsharded one. Under a mesh the port trains step by step
-    (`train.init_state(..., mesh=)`, `train.train_step`); the driver,
-    checkpoints and serving under a mesh are sharding part 2."""
+    mesh of its shape (`sharding.bringup`): a sharded config must not
+    train as an unsharded one. (`ScoringService` without a mesh serves a
+    sharded config's weights whole, and checks the config unsharded.)"""
     check_supported(cfg.model)
     sh = cfg.sharding
     if mesh is not None:
@@ -86,10 +85,10 @@ def check_config(cfg: Config, mesh=None) -> None:
     elif sh.num_data * sh.num_rows > 1:
         raise NotImplementedError(
             f"a sharded layout (num_data={sh.num_data}, "
-            f"num_rows={sh.num_rows}) runs only step by step under a mesh "
-            f"(sharding.bringup, train.init_state(..., mesh=), "
-            f"train.train_step); train(), checkpoints and ScoringService "
-            f"under a mesh come with sharding part 2")
+            f"num_rows={sh.num_rows}) trains only under a mesh of its "
+            f"shape: sharding.bringup(cfg.sharding, ...), then "
+            f"train.init_state(..., mesh=) or train.train(..., mesh=); the "
+            f"CLI under python -m torch.distributed.run")
 
 
 def check_device(cfg, device, fanouts: Optional[Sequence[int]] = None
@@ -118,7 +117,9 @@ def check_device(cfg, device, fanouts: Optional[Sequence[int]] = None
 
 def stored_fanouts(graph) -> Tuple[int, int]:
     """The (user, item) neighbour fan-outs a graph stores: a GraphStore's
-    or a DeviceGraph's last axis."""
+    adjacency's last axis, a DeviceGraph's or ShardedGraph's `fanouts`."""
+    if hasattr(graph, "fanouts"):
+        return tuple(graph.fanouts)
     return graph.u2i.shape[-1], graph.i2u.shape[-1]
 
 

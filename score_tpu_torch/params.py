@@ -100,6 +100,19 @@ def cast_tables(state_dict: Mapping[str, torch.Tensor],
     return sd
 
 
+def assign_weights(model: torch.nn.Module,
+                   state_dict: Mapping[str, torch.Tensor]) -> None:
+    """Make `state_dict`'s tensors the model's parameters, by name and as
+    they are (shape, dtype, device): a sharded model's tables then are
+    the row blocks given, where load_state_dict would want whole ones."""
+    params = dict(model.named_parameters())
+    if set(params) != set(state_dict):
+        raise KeyError(f"weights {sorted(set(state_dict) ^ set(params))} "
+                       f"are missing on one side")
+    for name, t in state_dict.items():
+        params[name].data = t
+
+
 def opt_state_from_optax(opt_state, step: Optional[int] = None) -> dict:
     """The state of an optax optimizer of score_tpu/train.py:make_optimizer
     (adam, adamw, adagrad or sgd, at any schedule, in a chain with masked

@@ -10,6 +10,15 @@ topk, topk_batch, from_checkpoint):
     items, scores = svc.topk(user_id, k=10)        # full catalogue
     items, scores = svc.topk_batch(user_ids, k=10) # [R, k] each
 
+Under a (data, rows) mesh (`ScoringService(..., mesh=mesh)`, every rank
+of the world constructing it) each rank holds its row block of the
+tables and of the graph, and every rank passes the same request and
+gets the same scores: each scores the whole request, its lookups and the
+graph's histories coming from their owners through the exchange of
+cfg.sharding.lookup_mode at its exact capacity. Without a mesh a sharded
+config's weights are served whole on one device, as the reference's
+`mesh=None` serves them.
+
 Request shapes are padded to fixed buckets, as in the reference. Candidate
 lists wider than `candidate_chunk` are scored in blocks of that width, all
 blocks dispatched before any is read back; a full-catalogue `topk` lays
@@ -23,12 +32,13 @@ from typing import Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .config import Config
+from .config import Config, ShardingConfig
 from .data.schema import Dataset
-from .graph import DeviceGraph, device_graph, gather_candidate_batch
+from .graph import device_graph, gather_candidate_batch, mesh_graph
 from .nn.model import (build_model, check_config, check_device,
                        stored_fanouts)
-from .params import cast_tables
+from .params import assign_weights, cast_tables
+from .sharding import make_lookup_fn, shard_params
 
 _BUCKETS = (1, 16, 64, 256, 1024, 4096)
 
@@ -42,25 +52,43 @@ def _bucket(n: int) -> int:
 
 class ScoringService:
     """Scorer over the model and graph, resident on one `device` (the CUDA
-    card unless the caller asks for another, as the CPU tests do)."""
+    card unless the caller asks for another, as the CPU tests do), or on
+    mesh.device under a `mesh`."""
 
     def __init__(self, cfg: Config, ds: Dataset,
                  state_dict: Mapping[str, torch.Tensor],
                  slot: Optional[int] = None, candidate_chunk: int = 4096,
-                 topk_grid_rows: int = 16, device="cuda"):
-        check_config(cfg)
-        check_device(cfg, device, stored_fanouts(ds.graph))
+                 topk_grid_rows: int = 16, device="cuda", mesh=None):
+        """`state_dict`: the f32 weights, whole; under a mesh they may also
+        be this rank's row blocks of the tables (what `from_checkpoint`
+        restores). Whole tables are cut to this rank's blocks first and
+        cast to the compute dtype after, so no full table is cast on the
+        device."""
+        if mesh is None:        # a sharded config's weights, served whole
+            cfg = cfg.replace(sharding=ShardingConfig())
+        self.device = torch.device(device) if mesh is None else mesh.device
+        check_config(cfg, mesh)
+        check_device(cfg, self.device, stored_fanouts(ds.graph))
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.mesh = mesh
         self.candidate_chunk = int(candidate_chunk)
         self.topk_grid_rows = int(topk_grid_rows)
         self.num_users = ds.num_users
         self.num_items = ds.num_items
-        self.graph: DeviceGraph = device_graph(ds.graph, self.device)
-        self.model = build_model(cfg, ds.num_users, ds.num_items)
+        lookup_fn = None
+        if mesh is None:
+            self.graph = device_graph(ds.graph, self.device)
+        else:           # serving sizes vary: the exact capacity, always
+            lookup_fn = make_lookup_fn(mesh, cfg.sharding.lookup_mode)
+            self.graph = mesh_graph(ds.graph, mesh, cfg.sharding.lookup_mode)
+        self.model = build_model(cfg, ds.num_users, ds.num_items, lookup_fn)
+        if lookup_fn is not None:
+            whole = {k: p.shape[0]
+                     for k, p in self.model.named_parameters()}
+            state_dict = shard_params(mesh, state_dict, whole)
         sd = cast_tables(state_dict, cfg.model.compute_dtype)
-        self.model.load_state_dict(
-            {k: v.to(self.device) for k, v in sd.items()}, assign=True)
+        assign_weights(self.model,
+                       {k: v.to(self.device) for k, v in sd.items()})
         self.model.eval()
         # default scoring slot: one past the last, so the whole history is
         # visible
@@ -71,17 +99,20 @@ class ScoringService:
 
     @classmethod
     def from_checkpoint(cls, cfg: Config, ds: Dataset, ckpt_dir: str,
-                        which: str = "best", device="cuda",
+                        which: str = "best", device="cuda", mesh=None,
                         **service_kw) -> "ScoringService":
         """Serve checkpoint `which` of a `train` run (its f32 weights, read
-        straight onto `device`). `service_kw` passes on slot,
-        candidate_chunk and topk_grid_rows."""
+        straight onto `device`). Under a `mesh` each rank reads only the
+        rows it serves (of a sharded checkpoint of any layout, or of an
+        unsharded one); without one a sharded checkpoint is read whole.
+        `service_kw` passes on slot, candidate_chunk and topk_grid_rows."""
         from .checkpoint import CheckpointManager
-        restored = CheckpointManager(ckpt_dir).restore(which,
-                                                      torch.device(device))
+        restored = CheckpointManager(ckpt_dir, mesh).restore(
+            which, torch.device(device))
         if restored is None:
             raise FileNotFoundError(f"no '{which}' checkpoint in {ckpt_dir}")
-        return cls(cfg, ds, restored["params"], device=device, **service_kw)
+        return cls(cfg, ds, restored["params"], device=device, mesh=mesh,
+                   **service_kw)
 
     def score(self, user_id: int, item_ids: Sequence[int]) -> np.ndarray:
         """Pointwise scores for one user against a candidate list; the user

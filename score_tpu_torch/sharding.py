@@ -22,8 +22,13 @@ Two lookups gather rows that other ranks hold:
 
 Both gather through the gather kernel and take their table gradient
 through the scatter-add kernel (`kernels/gather.py`), on CUDA tensors
-over NCCL and on CPU tensors, with their plain versions, over gloo. The
-adjacency graph stays whole on every rank.
+over NCCL and on CPU tensors, with their plain versions, over gloo.
+
+The adjacency graph is row-sharded as the tables are (`shard_graph`):
+each rank holds row block r of each side's nodes, adjacency and counts
+packed as one int32 block, and a batch's histories come from their
+owners through the a2a exchange at its exact capacity (`graph_rows`),
+with no autograd.
 
     mesh, lookup_fn = bringup(cfg.sharding, init_method="file:///tmp/x",
                               world_size=4, rank=rank, device="cpu")
@@ -37,7 +42,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import re
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -197,16 +202,89 @@ def shard_state(mesh: Mesh, state):
     return state
 
 
-def full_tables(mesh: Mesh, state) -> dict:
-    """Every parameter of a sharded TrainState, whole: the table blocks
-    all-gathered over the rows group, dense parameters as they are."""
+def full_tables(mesh: Mesh, params) -> dict:
+    """Every parameter of a sharded TrainState, or of a state_dict of its
+    blocks (`train`'s `params`), whole: the table blocks all-gathered over
+    the rows group, dense parameters as they are."""
+    items = (params.items() if isinstance(params, Mapping)
+             else params.model.named_parameters())
     out = {}
-    for name, p in state.model.named_parameters():
+    for name, p in items:
         t = p.detach()
         if state_spec(name, t):
             t = _all_gather(t, mesh.rows_group, mesh.num_rows).flatten(0, 1)
         out[name] = t
     return out
+
+
+def shard_params(mesh: Mesh, state_dict: Mapping[str, torch.Tensor],
+                 whole_rows: Mapping[str, int]) -> dict:
+    """A state_dict with each table cut to this rank's row block: a table
+    of `whole_rows[name]` rows is cut, one already of that over num_rows
+    (a sharded checkpoint's restore) is kept; dense entries as they are."""
+    out = {}
+    for name, t in state_dict.items():
+        if state_spec(name, t) and t.shape[0] == whole_rows[name]:
+            t = _block(mesh, name, t)
+        elif state_spec(name, t) and (t.shape[0] * mesh.num_rows
+                                      != whole_rows[name]):
+            raise ValueError(f"{name}: {t.shape[0]} rows are neither the "
+                             f"table's {whole_rows[name]} nor a block of "
+                             f"them over {mesh.num_rows}")
+        out[name] = t
+    return out
+
+
+def graph_spec(name: str, tensor) -> tuple:
+    """The reference's rule for the graph: adjacency [N, T, k] and counts
+    [N, T] (node-major) are sharded on the node axis, anything else is
+    whole."""
+    ndim = getattr(tensor, "ndim", 0)
+    if ndim in (2, 3):
+        return (ROWS_AXIS,) + (None,) * (ndim - 1)
+    return ()
+
+
+@dataclasses.dataclass
+class ShardedGraph:
+    """This rank's row block of a graph's node axis: each side's adjacency
+    and counts packed as one int32 block [N / num_rows, T * k + T] (a
+    node's history, then its T counts), so one exchange serves a side."""
+
+    mesh: Mesh
+    user: torch.Tensor
+    item: torch.Tensor
+    num_slots: int
+    fanouts: Tuple[int, int]
+
+    @property
+    def device(self) -> torch.device:
+        return self.user.device
+
+
+def shard_graph(mesh: Mesh, graph) -> ShardedGraph:
+    """A DeviceGraph (best on the CPU: only the blocks move) cut by
+    `graph_spec` to this rank's row block of each side, packed, on
+    mesh.device. Its 64-row node padding splits over any num_rows that
+    divides 64."""
+    def side(*names):
+        cut = [(_block(mesh, n, t) if graph_spec(n, t) else t)
+               for n, t in ((n, getattr(graph, n)) for n in names)]
+        return torch.cat([cut[0].flatten(1), cut[1]], dim=1).to(mesh.device)
+    return ShardedGraph(mesh, side("u2i", "u2i_cnt"), side("i2u", "i2u_cnt"),
+                        graph.num_slots, tuple(graph.fanouts))
+
+
+@torch.inference_mode()
+def graph_rows(mesh: Mesh, block: torch.Tensor, nodes: torch.Tensor
+               ) -> torch.Tensor:
+    """The packed rows of `nodes` [...] (this rank's ids) from a sharded
+    graph side: the a2a exchange at its exact capacity, which never
+    aliases, whatever cfg.sharding.a2a_capacity the tables use. No
+    autograd; every rank of a rows group passes as many ids."""
+    flat = nodes.reshape(-1)
+    rows, _ = _a2a_exchange(mesh, block, flat, flat.shape[0])
+    return rows.view(*nodes.shape, block.shape[1])
 
 
 # --- collectives ----------------------------------------------------------
@@ -317,6 +395,20 @@ def _a2a_plan(flat: torch.Tensor, cap: int, R: int, per: int):
     return req, slot_pos[urank].to(torch.int32), n_uniq
 
 
+def _a2a_exchange(mesh: Mesh, table: torch.Tensor, flat: torch.Tensor,
+                  cap: int):
+    """The rows of local ids `flat` [L] from a row-blocked table: the
+    dedup and owner buckets, the requests out, the owners' masked gather,
+    the rows back, un-bucketed and un-deduped in one gather. Returns
+    (rows [L, W], (pos, local, ok, n_uniq)) for the backward."""
+    per, W = table.shape
+    group = mesh.rows_group
+    req, pos, n_uniq = _a2a_plan(flat, cap, mesh.num_rows, per)
+    local, ok = _owned(mesh, _all_to_all(req, group), per)
+    resp = _all_to_all(_masked_gather(table, local, ok), group)
+    return gather_rows(resp.view(-1, W), pos), (pos, local, ok, n_uniq)
+
+
 class _A2ALookup(torch.autograd.Function):
     """Each ids tensor's rows through its own exchange (one a lookup, as
     the reference makes them), and the overflow of each lookup summed
@@ -327,23 +419,18 @@ class _A2ALookup(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, mesh, capacity, table, *ids):
-        per, d = table.shape
-        R, group = mesh.num_rows, mesh.rows_group
         outs, saved, ovf = [], [], []
         for i in ids:
             flat = i.reshape(-1)
             cap = min(capacity, flat.shape[0]) if capacity else flat.shape[0]
-            req, pos, n_uniq = _a2a_plan(flat, cap, R, per)
-            # 3. requests out, the owner's masked gather, rows back
-            local, ok = _owned(mesh, _all_to_all(req, group), per)
-            resp = _all_to_all(_masked_gather(table, local, ok), group)
-            # 4. un-bucket and un-dedup in one gather
-            outs.append(gather_rows(resp.view(-1, d), pos).view(*i.shape, d))
+            rows, (pos, local, ok, n_uniq) = _a2a_exchange(mesh, table,
+                                                           flat, cap)
+            outs.append(rows.view(*i.shape, table.shape[1]))
             ovf.append(torch.clamp(n_uniq - cap, min=0))
             saved += [pos, local, ok]
         overflow = torch.stack(ovf)
         dist.all_reduce(overflow)           # over (DATA, ROWS): the world
-        ctx.mesh, ctx.per = mesh, per
+        ctx.mesh, ctx.per = mesh, table.shape[0]
         ctx.save_for_backward(*saved)
         ctx.mark_non_differentiable(overflow)
         return (*outs, overflow)

@@ -35,15 +35,25 @@ step never waits for the device: metrics come back as device tensors,
 and dropout masks and re-sampling keys are drawn on the device from
 generators seeded by (seed, step), so a resumed run draws the same ones.
 
-Under a (data, rows) mesh (`sharding.bringup`) a sharded config trains
-step by step: `init_state(..., mesh=mesh)` row-shards the tables and
-their optimizer state, and `train_step` takes this rank's rows of the
-global batch and gives what the unsharded step gives on the whole batch.
+Under a (data, rows) mesh (`sharding.bringup`) a sharded config (configs4)
+trains as the reference's does under its mesh: `init_state(...,
+mesh=mesh)` row-shards the tables and their optimizer state, and
+`train_step` takes this rank's rows of the global batch and gives what
+the unsharded step gives on the whole batch; the graph is row-sharded
+too (`graph.mesh_graph`). `make_eval_step(model, mesh)` and `evaluate`
+score each rank's share of every block and all-reduce the carry, so
+every rank reads the same metrics; `train(cfg, ds, mesh=mesh)` (or under
+`python -m torch.distributed.run`, which it joins) runs the driver with
+sharded `latest` and `best` checkpoints:
 
-Left out, and refused where a config asks for them: the driver,
-checkpoints and serving under a mesh (sharding part 2), and non-f32
-parameters. In-batch negatives on a baseline arch raise ValueError, as
-the reference's step does: those archs score the positive alone.
+    python -m torch.distributed.run --nproc-per-node 4 \
+        -m score_tpu_torch.train configs4 <data_dir> \
+        sharding.num_data=2 sharding.num_rows=2
+
+Left out, and refused where a config asks for them: non-f32 parameters,
+and a sharded config without a mesh (it is never run unsharded).
+In-batch negatives on a baseline arch raise ValueError, as the
+reference's step does: those archs score the positive alone.
 """
 
 from __future__ import annotations
@@ -66,7 +76,7 @@ from .config import PRESETS, Config, apply_overrides
 from .data.pipeline import TargetIterator, eval_index_batches
 from .data.schema import Dataset
 from .graph import (DeviceGraph, device_graph, gather_candidate_batch,
-                    subsample_neighbors)
+                    mesh_graph, subsample_neighbors)
 from .metrics import (F16_BINS, auc, hist_auc, rank_sum_keys, ranking_sums,
                       score_hists)
 from .nn.embed import EmbeddingTables
@@ -74,10 +84,10 @@ from .nn.model import (build_model, check_config, check_device,
                        stored_fanouts)
 from .nn.scorer import bce_loss
 from .optim import Optimizer, is_table, make_optimizer
-from .params import cast_tables, init_params
+from .params import assign_weights, cast_tables, init_params
 from .profiling import maybe_profile
-from .sharding import (Mesh, all_gather_world, make_lookup_fn,
-                       shard_state, state_spec)
+from .sharding import (Mesh, ShardedLookup, all_gather_world, bringup,
+                       make_lookup_fn, shard_state, state_spec)
 
 
 def item_importance_weights(train_split, num_items: int) -> np.ndarray:
@@ -517,7 +527,8 @@ def train_loop(state: TrainState, graph: DeviceGraph,
     return state, out
 
 
-def make_eval_step(model: torch.nn.Module) -> Callable:
+def make_eval_step(model: torch.nn.Module, mesh: Optional[Mesh] = None
+                   ) -> Callable:
     """eval_step(graph, batch) scores each positive against its fixed
     negatives: batch {user, item, slot [B], neg [B, N]} -> logits
     [B, 1 + N], the positive first. It runs an inference copy of `model`
@@ -525,15 +536,22 @@ def make_eval_step(model: torch.nn.Module) -> Callable:
     tables cast once by `params.cast_tables` as serving casts them. In f32
     and in bf16 alike, later training does not reach the copy:
     `eval_step.refresh(model_or_state_dict)` copies the current weights
-    into it (tables cast the same way), so one step serves a whole run."""
-    em = build_model(model.cfg, model.num_users, model.num_items)
+    into it (tables cast the same way), so one step serves a whole run.
+
+    Under a `mesh` (`eval_step.mesh`, which `evaluate` reads) the copy
+    holds this rank's table blocks, as `model` does, and looks them up
+    through `model`'s exchange at its exact capacity, which never
+    aliases; the graph it is given is then `graph.mesh_graph`'s."""
+    tables = [m for m in model.modules() if isinstance(m, EmbeddingTables)]
+    fn = tables[0].lookup_fn if tables else None
+    lookup_fn = None if fn is None else ShardedLookup(fn.mesh, fn.mode)
+    em = build_model(model.cfg, model.num_users, model.num_items, lookup_fn)
     sd = cast_tables(model.state_dict(), model.cfg.compute_dtype)
-    em.load_state_dict({k: v.detach().clone() for k, v in sd.items()},
-                       assign=True)
+    assign_weights(em, {k: v.detach().clone() for k, v in sd.items()})
     em.eval()
 
     @torch.inference_mode()
-    def eval_step(graph: DeviceGraph, batch: Mapping) -> torch.Tensor:
+    def eval_step(graph, batch: Mapping) -> torch.Tensor:
         cand = torch.cat([batch["item"][:, None], batch["neg"]], dim=1)
         mb = gather_candidate_batch(graph, batch["user"], cand,
                                     batch["slot"], item_side=em.dual)
@@ -547,6 +565,7 @@ def make_eval_step(model: torch.nn.Module) -> Callable:
             t.copy_(sd[k])
 
     eval_step.model = em
+    eval_step.mesh = mesh
     eval_step.refresh = refresh
     return eval_step
 
@@ -564,7 +583,7 @@ def _eval_accum(scores: torch.Tensor, w: torch.Tensor, carry: Dict,
     score_hists(pos, neg, w, carry["hist_pos"], carry["hist_neg"])
 
 
-def evaluate(eval_step: Callable, graph: DeviceGraph, targets,
+def evaluate(eval_step: Callable, graph, targets,
              batch_size: int = 256, ks: Sequence[int] = (1, 5, 10),
              max_targets: Optional[int] = None) -> Dict[str, float]:
     """Streaming split evaluation: the pooled AUC and the per-target
@@ -576,8 +595,22 @@ def evaluate(eval_step: Callable, graph: DeviceGraph, targets,
     the device-resident carry (two F16_BINS histograms and one row of
     ranking sums per block), which is read back once at the end and
     reduced in f64 on the host. `max_targets` scores a subsample drawn
-    with a fixed seed (np.random.default_rng(0)), the same every run."""
-    dev = graph.u2i.device
+    with a fixed seed (np.random.default_rng(0)), the same every run.
+
+    Under the eval step's mesh (`make_eval_step(model, mesh)`) every rank
+    passes the same targets and scores its share of each block
+    (batch_size / mesh.size rows, in rank order; the ragged tail keeps
+    weight 0), and the carry is all-reduced over the world before the one
+    readback, so every rank returns the same metrics."""
+    dev = graph.device
+    mesh = getattr(eval_step, "mesh", None)
+    share = slice(None)
+    if mesh is not None:
+        if batch_size % mesh.size:
+            raise ValueError(f"eval batch_size {batch_size} does not split "
+                             f"over a {mesh.size}-rank mesh")
+        per = batch_size // mesh.size
+        share = slice(mesh.rank * per, (mesh.rank + 1) * per)
     model = getattr(eval_step, "model", None)
     if model is not None:   # eval runs at the graph's stored fan-outs
         check_device(model.cfg, dev, stored_fanouts(graph))
@@ -597,9 +630,13 @@ def evaluate(eval_step: Callable, graph: DeviceGraph, targets,
                                       device=dev),
                  msums=torch.zeros(n_blocks, len(names), device=dev))
     for bi, (idx, w) in enumerate(eval_index_batches(n, batch_size)):
+        idx, w = idx[share], w[share]
         batch = {k: _as_device(v[idx], dev) for k, v in cols.items()}
         scores = eval_step(graph, batch)
         _eval_accum(scores, torch.from_numpy(w).to(dev), carry, bi, ks)
+    if mesh is not None:
+        for v in carry.values():
+            dist.all_reduce(v)
     carry = {k: v.cpu().numpy() for k, v in carry.items()}   # one readback
     sums = carry["msums"].astype(np.float64).sum(axis=0)
     by_name = dict(zip(names, sums))
@@ -619,15 +656,17 @@ def _append_row(path: Optional[str], row: dict) -> None:
             f.write(json.dumps(row) + "\n")
 
 
-def _stage_batches(it: TargetIterator, k: int, device, negatives=None
+def _stage_batches(it: TargetIterator, k: int, device, negatives=None,
+                   rows: slice = slice(None)
                    ) -> List[Dict[str, torch.Tensor]]:
-    """The next k host batches, and with `negatives` (k raw [B, n] uniform
-    draws) each step's under the key 'neg', as views of one int32 device
-    array: one host-to-device copy a chunk, as the reference's
-    _stack_batches stages its fused loop's batches. (A copy from pageable
-    host memory waits for the device, so a copy a step would keep the host
-    from running ahead of it.)"""
-    host = [next(it) for _ in range(k)]
+    """The next k host batches (their rows `rows`: a rank's block), and
+    with `negatives` (k raw [B, n] uniform draws, whole) each step's under
+    the key 'neg', as views of one int32 device array: one host-to-device
+    copy a chunk, as the reference's _stack_batches stages its fused
+    loop's batches. (A copy from pageable host memory waits for the
+    device, so a copy a step would keep the host from running ahead of
+    it.)"""
+    host = [_batch_rows(next(it), rows) for _ in range(k)]
     if negatives is not None:
         host = [dict(b, neg=n) for b, n in zip(host, negatives)]
     shapes = {key: np.shape(v) for key, v in host[0].items()}
@@ -644,8 +683,30 @@ def _stage_batches(it: TargetIterator, k: int, device, negatives=None
     return out
 
 
+def _batch_rows(batch: Mapping, rows: slice) -> dict:
+    return {key: v[rows] for key, v in batch.items()}
+
+
+def join_world(shard_cfg, device="cuda") -> Mesh:
+    """The mesh of a sharded config for a process that is already in a
+    world or was started by torchrun (`sharding.bringup` from its env);
+    otherwise a RuntimeError that says how to start one."""
+    torchrun = all(k in os.environ for k in ("RANK", "WORLD_SIZE",
+                                             "MASTER_ADDR"))
+    if not (dist.is_initialized() or torchrun):
+        raise RuntimeError(
+            f"a sharded config (num_data={shard_cfg.num_data}, num_rows="
+            f"{shard_cfg.num_rows}) trains in a world of "
+            f"{shard_cfg.num_data * shard_cfg.num_rows} ranks: start it with "
+            f"python -m torch.distributed.run --nproc-per-node N -m "
+            f"score_tpu_torch.train ..., or pass train(..., mesh=) a "
+            f"sharding.bringup mesh")
+    return bringup(shard_cfg, device=device)[0]
+
+
 def train(cfg: Config, ds: Dataset, verbose: bool = True,
           log_path: Optional[str] = None, *, device="cuda",
+          mesh: Optional[Mesh] = None,
           parity_state_dict: Optional[Mapping[str, torch.Tensor]] = None,
           parity_shifts_fn: Optional[Callable[[int, int], List[int]]] = None,
           parity_negatives_fn: Optional[Callable[[int, int], object]] = None
@@ -671,6 +732,18 @@ def train(cfg: Config, ds: Dataset, verbose: bool = True,
     fan-outs the card's kernels do not take is refused before anything
     moves to the device.
 
+    Under a `mesh` (a sharded config without one joins the process's
+    world, or torchrun's, through `join_world`, and is refused outside
+    any) everything runs on mesh.device: every rank iterates the same
+    global batches and stages only its rows of each (its batch block),
+    the draws are the global batch's, the graph is row-sharded, val and
+    test metrics are the world's (the same on every rank, so every rank
+    stops and keeps `best` at the same step), checkpoints are sharded
+    (`CheckpointManager(dir, mesh)`), and only rank 0 prints and writes
+    `log_path` rows. With lookup_mode 'a2a' each chunk's a2a_overflow,
+    summed over the world, is read back: above 0 the run raises
+    RuntimeError on every rank (overflow_action 'raise') or warns.
+
     `parity_state_dict`, `parity_shifts_fn(step, B)` and
     `parity_negatives_fn(step, B)` are for parity tests only: the initial
     weights and each step's shifts or raw [B, k] uniform negatives in
@@ -679,13 +752,26 @@ def train(cfg: Config, ds: Dataset, verbose: bool = True,
 
     Returns {best_val_auc, best_step, test, history, params, steps_run} as
     the reference does (params: the best weights as a state_dict on
-    `device`), plus `timing`: this call's first step, its steps, and the
-    seconds spent training, in each val and in the test eval."""
-    tc = cfg.train
-    dev = torch.device(device)
-    check_trainable(cfg)
+    `device`; under a mesh this rank's blocks, which
+    `sharding.full_tables` gathers whole), plus `timing`: this call's
+    first step, its steps, and the seconds spent training, in each val
+    and in the test eval; and `state`, the TrainState as the run left
+    it."""
+    tc, sh = cfg.train, cfg.sharding
+    if mesh is None and sh.num_data * sh.num_rows > 1:
+        mesh = join_world(sh, device)
+    dev = torch.device(device) if mesh is None else mesh.device
+    check_trainable(cfg, mesh)
     check_device(cfg, dev, stored_fanouts(ds.graph))
-    graph = device_graph(ds.graph, dev)
+    rows = slice(None)
+    if mesh is None:
+        graph = device_graph(ds.graph, dev)
+    else:
+        graph = mesh_graph(ds.graph, mesh, sh.lookup_mode)
+        per = tc.batch_size // mesh.size
+        rows = slice(mesh.rank * per, (mesh.rank + 1) * per)
+        verbose = verbose and mesh.rank == 0
+        log_path = log_path if mesh.rank == 0 else None
     it = TargetIterator(ds.train, tc.batch_size, seed=tc.seed)
     if parity_state_dict is None:
         sd = init_params(cfg, ds.num_users, ds.num_items,
@@ -693,7 +779,7 @@ def train(cfg: Config, ds: Dataset, verbose: bool = True,
     else:   # the state trains in place: leave the caller's tensors alone
         sd = {k: v.clone() for k, v in parity_state_dict.items()}
     state = init_state(cfg, ds.num_users, ds.num_items, sd, device=dev,
-                       steps_per_epoch=it.steps_per_epoch)
+                       steps_per_epoch=it.steps_per_epoch, mesh=mesh)
     neg_iw = None
     if cfg.data.train_neg_mode == "inbatch_iw":
         neg_iw = torch.from_numpy(
@@ -704,7 +790,7 @@ def train(cfg: Config, ds: Dataset, verbose: bool = True,
         lambda s, b: step_shifts(tc.seed, s, k_neg, b))
     negatives_fn = parity_negatives_fn or (
         lambda s, b: step_negatives(tc.seed, s, b, k_neg, ds.num_items))
-    eval_step = make_eval_step(state.model)
+    eval_step = make_eval_step(state.model, mesh)
 
     steps_per_epoch = it.steps_per_epoch
     total_steps = steps_per_epoch * tc.num_epochs
@@ -717,7 +803,7 @@ def train(cfg: Config, ds: Dataset, verbose: bool = True,
     step = 0
     ckpt = None
     if tc.checkpoint_dir:
-        ckpt = CheckpointManager(tc.checkpoint_dir)
+        ckpt = CheckpointManager(tc.checkpoint_dir, mesh)
         restored = ckpt.restore("latest", state)
         if restored is not None:
             apply_restore(state, restored)
@@ -749,25 +835,30 @@ def train(cfg: Config, ds: Dataset, verbose: bool = True,
             if uniform:
                 batches = _stage_batches(
                     it, chunk, dev,
-                    [negatives_fn(step + j, B) for j in range(chunk)])
+                    [negatives_fn(step + j, B) for j in range(chunk)], rows)
                 state, ms = train_loop(
                     state, graph, batches, neg_iw=neg_iw,
                     negatives_list=[b.pop("neg") for b in batches])
             else:
-                batches = _stage_batches(it, chunk, dev)
+                batches = _stage_batches(it, chunk, dev, rows=rows)
                 shifts = [shifts_fn(step + j, B) for j in range(chunk)]
                 state, ms = train_loop(state, graph, batches, shifts, neg_iw)
             m = {"loss": ms["loss"][-1], "batch_auc": ms["batch_auc"][0]}
+            if "a2a_overflow" in ms:
+                m["a2a_overflow"] = ms["a2a_overflow"].sum()   # the chunk
             step += chunk
         elif uniform:
-            state, m = train_step(state, graph, next(it), neg_iw=neg_iw,
+            state, m = train_step(state, graph, _batch_rows(next(it), rows),
+                                  neg_iw=neg_iw,
                                   negatives=negatives_fn(step, B))
             step += 1
         else:
-            state, m = train_step(state, graph, next(it),
+            state, m = train_step(state, graph, _batch_rows(next(it), rows),
                                   shifts_fn(step, B), neg_iw)
             step += 1
-        if tc.profile_dir:
+        if sh.lookup_mode == "a2a" and "a2a_overflow" in m:
+            _check_overflow(cfg, step, int(m["a2a_overflow"]))
+        if tc.profile_dir and (mesh is None or mesh.rank == 0):
             # one window over steps 10..30: past the warm-up, short enough
             # to read
             if step >= 10 and not profiled:
@@ -842,13 +933,33 @@ def train(cfg: Config, ds: Dataset, verbose: bool = True,
     _append_row(log_path, dict(step=step, split="test", **test))
     return dict(best_val_auc=best["val_auc"], best_step=best["step"],
                 test=test, history=history, params=final_params,
-                steps_run=step, timing=timing)
+                steps_run=step, timing=timing, state=state)
+
+
+def _check_overflow(cfg: Config, step: int, overflow: int) -> None:
+    """The reference's a2a capacity check on a chunk's overflow (the same
+    count on every rank: the lookups sum it over the world), so every rank
+    raises together: uniques past a2a_capacity read aliased rows."""
+    if overflow <= 0:
+        return
+    sh = cfg.sharding
+    msg = (f"step {step}: a2a_lookup capacity overflow ({overflow} uniques "
+           f"dropped) - raise sharding.a2a_capacity (current "
+           f"{sh.a2a_capacity}); metrics from this step on are corrupt")
+    if sh.overflow_action == "raise":
+        raise RuntimeError(msg)
+    if dist.get_rank() == 0:
+        print("WARNING " + msg, flush=True)
 
 
 def main(argv=None, device="cuda"):
     """python -m score_tpu_torch.train <preset> [data_dir] [--device D]
     [section.key=value ...]: load the dataset in data_dir (or prep it
-    there, from the raw log or a synthesized one) and train."""
+    there, from the raw log or a synthesized one) and train; returns
+    train()'s result. A sharded preset (configs4) runs under `python -m
+    torch.distributed.run --nproc-per-node N` (N = num_data x num_rows)
+    or in a world the caller has joined: rank 0 preps the dataset, the
+    others load it."""
     args = list(sys.argv[1:] if argv is None else argv)
     if "--device" in args:
         i = args.index("--device")
@@ -869,19 +980,31 @@ def main(argv=None, device="cuda"):
             data_dir = a
     if overrides:
         cfg = apply_overrides(cfg, overrides)
+    sh = cfg.sharding
+    joined = dist.is_initialized()
+    mesh = (join_world(sh, device) if sh.num_data * sh.num_rows > 1
+            else None)
+    lead = mesh is None or mesh.rank == 0
     from .data.prep_datasets import PREP
     from .data.schema import load_dataset
-    if data_dir and os.path.exists(os.path.join(data_dir, "meta.json")):
-        ds = load_dataset(data_dir)
-    else:
-        data_dir = data_dir or os.path.join(tempfile.gettempdir(),
-                                            "score_tpu_data",
-                                            cfg.data.dataset)
-        prep = PREP.get(cfg.data.dataset, PREP["taobao"])
-        ds = prep(data_dir, user_fanout=cfg.data.user_fanout,
-                  item_fanout=cfg.data.item_fanout,
-                  num_eval_neg=cfg.data.num_eval_neg)
-    train(cfg, ds, device=device)
+    fresh = not (data_dir
+                 and os.path.exists(os.path.join(data_dir, "meta.json")))
+    data_dir = data_dir or os.path.join(tempfile.gettempdir(),
+                                        "score_tpu_data", cfg.data.dataset)
+    try:
+        if lead and fresh:
+            prep = PREP.get(cfg.data.dataset, PREP["taobao"])
+            ds = prep(data_dir, user_fanout=cfg.data.user_fanout,
+                      item_fanout=cfg.data.item_fanout,
+                      num_eval_neg=cfg.data.num_eval_neg)
+        if mesh is not None:
+            dist.barrier()              # rank 0's prep is on disk
+        if not (lead and fresh):
+            ds = load_dataset(data_dir)
+        return train(cfg, ds, device=device, mesh=mesh)
+    finally:
+        if mesh is not None and not joined:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -10,26 +10,40 @@ writes <dir>/results.npz. A (2, 2) world runs the psum and a2a lookups
 and their table gradients, the a2a capacity and overflow cases, and the
 sharded train steps (configs4 at the tests' tiny widths, the draws fed
 in; and, against the port's own unsharded step on the whole batch,
-steps that draw their own shifts, masks and keys); a (2, 1) world the
-'local' data-parallel step. It imports no JAX and nothing of the JAX
-package; the file has no test_ prefix, so pytest does not collect it.
+steps that draw their own shifts, masks and keys), and then the rest of
+configs4 (`run_part2`): the row-sharded graph's gathers, `train()` with
+sharded checkpoints (restored into the world and into other layouts, a
+failed save), mesh serving, the overflow policy, `entry.dryrun_rank` and
+the CLI's `main`, on the test's dataset saved in <dir>/data; a (2, 1)
+world the 'local' data-parallel step. It imports no JAX and nothing of
+the JAX package; the file has no test_ prefix, so pytest does not collect
+it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import sys
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from score_tpu_torch import checkpoint as ckpt_mod
+from score_tpu_torch import entry
+from score_tpu_torch.checkpoint import CheckpointManager, apply_restore
 from score_tpu_torch.config import ShardingConfig, configs4
-from score_tpu_torch.graph import DeviceGraph
+from score_tpu_torch.data.schema import load_dataset
+from score_tpu_torch.graph import (DeviceGraph, device_graph, gather_batch,
+                                   gather_candidate_batch, mesh_graph)
 from score_tpu_torch.params import init_params
+from score_tpu_torch.serve import ScoringService
 from score_tpu_torch.sharding import (a2a_lookup, all_gather_world, bringup,
-                                      full_tables, psum_lookup)
-from score_tpu_torch.train import init_state, train_loop, train_step
+                                      full_tables, make_mesh, psum_lookup)
+from score_tpu_torch.train import (init_state, item_importance_weights,
+                                   main as train_main, train, train_loop,
+                                   train_step)
 
 B = 16                        # the global batch of every step
 WIDTHS = dict(embed_dim=8, hidden_dim=8, mlp_dims=(16, 8))
@@ -77,6 +91,28 @@ PORT_CASES = {
                   train=dict(table_update_every=2, table_lr_boost=2.0),
                   sharding=dict(lookup_mode="local"), steps=3),
 }
+
+
+# train() on configs4(2, 2), held to the JAX package's train() on the
+# fake mesh: batch 256 (45 steps an epoch of the test's dataset), val
+# every 15 steps on 256 targets, lr 1e-4, in-batch IW
+DRIVER_B = 256
+DRIVER = dict(data=dict(train_neg_mode="inbatch_iw"),
+              train=dict(batch_size=DRIVER_B, num_epochs=1, learning_rate=1e-4,
+                         eval_every_steps=15, eval_max_targets=256,
+                         early_stop_patience=100, log_every_steps=10 ** 9))
+# the overflow policy at a2a_capacity 1 (uniform negatives, as the
+# reference's test), no val before the epoch's end
+OVERFLOW = dict(data=dict(train_neg_mode="uniform"),
+                train=dict(batch_size=DRIVER_B, num_epochs=1,
+                           eval_every_steps=10 ** 9, eval_max_targets=256,
+                           log_every_steps=10 ** 9),
+                sharding=dict(a2a_capacity=1))
+CLI_ARGS = ("model.embed_dim=8", "model.hidden_dim=8", "model.mlp_dims=16,8",
+            "train.batch_size=512", "train.num_epochs=1",
+            "train.eval_max_targets=256", "train.log_every_steps=1000000000")
+SERVE_ITEMS, SERVE_USERS, SERVE_WIDTH = 21, 4, 64
+DRIVER_METRICS = ("auc", "ndcg@10", "hr@10", "mrr")
 
 
 def case_config(make_configs4, case: dict, data: int = 2, rows: int = 2):
@@ -259,6 +295,193 @@ def run_loop_overflow(mesh, x: Inputs, res):
     res["loop.step_overflows"] = np.array(counts)
 
 
+def _every_rank(mesh, x) -> np.ndarray:
+    """[world, ...]: x (a float array) from every rank."""
+    t = torch.as_tensor(np.asarray(x, np.float64))
+    return all_gather_world(mesh, t[None]).numpy()
+
+
+def run_graph(mesh, ds, res):
+    """This rank's rows of a batch through the row-sharded graph against
+    the whole graph's gathers: gather_batch and gather_candidate_batch,
+    every field bit-equal; the sharded fields of every rank gathered."""
+    sharded = mesh_graph(ds.graph, mesh, "a2a")
+    whole = device_graph(ds.graph, "cpu")
+    per = DRIVER_B // mesh.size
+    lo = mesh.rank * per
+    t = ds.train
+    u, i, sl = (torch.from_numpy(np.asarray(getattr(t, k)[lo:lo + per],
+                                            np.int32))
+                for k in ("user", "item", "slot"))
+    cand = torch.stack([i, torch.roll(i, 3), torch.roll(i, 7)], dim=1)
+    equal = True
+    for name, fn, args in (("batch", gather_batch, (u, i, sl)),
+                           ("cand", gather_candidate_batch, (u, cand, sl))):
+        got, want = fn(sharded, *args), fn(whole, *args)
+        for k in want:
+            equal &= got[k].dtype == want[k].dtype and \
+                torch.equal(got[k], want[k])
+            if k in ("u_hist", "i_hist", "u_cnt", "i_cnt"):
+                res[f"graph.{name}.{k}"] = all_gather_world(
+                    mesh, got[k].contiguous()).numpy()
+    res["graph.equal"] = _every_rank(mesh, float(equal))
+
+
+def _driver_row(out) -> list:
+    row = []
+    for r in out["history"]:
+        row += [r["step"]] + [r[k] for k in DRIVER_METRICS + ("loss",)]
+    row += [out["test"][k] for k in DRIVER_METRICS]
+    return row + [out["steps_run"], out["best_step"], out["best_val_auc"]]
+
+
+def run_driver(mesh, ds, inp, work, res):
+    """train() from the JAX init with JAX's shifts, sharded checkpoints in
+    <work>/ck; then the checkpoint round trip, layouts and a failed save,
+    and mesh serving from `best`."""
+    cfg = case_config(configs4, DRIVER, mesh.num_data, mesh.num_rows)
+    ck = os.path.join(work, "ck")
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                checkpoint_dir=ck))
+    shifts = inp["driver.shifts"]
+    sd = {k[len("sd.score."):]: torch.from_numpy(v) for k, v in inp.items()
+          if k.startswith("sd.score.")}
+    out = train(cfg, ds, verbose=False, device="cpu", mesh=mesh,
+                parity_state_dict=sd,
+                parity_shifts_fn=lambda s, b: [int(x) for x in shifts[s]])
+    res["driver.rows"] = _every_rank(mesh, _driver_row(out))
+    res["driver.nvals"] = np.int64(len(out["history"]))
+    for k, v in full_tables(mesh, out["params"]).items():
+        res[f"best.param.{k}"] = v.numpy()
+    run_restore(mesh, ds, cfg, out, ck, res)
+    run_failed_save(mesh, cfg, out["state"], work, res)
+    run_serving(mesh, ds, cfg, inp, ck, res)
+
+
+def _state_tensors(state) -> dict:
+    out = {f"param.{k}": v for k, v in state.model.state_dict().items()}
+    for key in state.opt.state_keys:
+        out.update({f"{key}.{k}": v
+                    for k, v in getattr(state.opt, key).items()})
+    return out
+
+
+def run_restore(mesh, ds, cfg, out, ck, res):
+    """`latest` (the run's last val, its last step) restored under the
+    mesh into a state from other weights: bit-equal to the live blocks and
+    optimizer state; one step from each, bit-equal. Then restored into
+    the (1, 4) and (4, 1) layouts, each block against the saved tables
+    gathered whole."""
+    live = out["state"]
+    other = init_params(cfg, ds.num_users, ds.num_items,
+                        torch.Generator().manual_seed(7))
+    fresh = init_state(cfg, ds.num_users, ds.num_items, other,
+                       device="cpu", mesh=mesh)
+    restored = CheckpointManager(ck, mesh).restore("latest", fresh)
+    apply_restore(fresh, restored)
+    a, b = _state_tensors(live), _state_tensors(fresh)
+    equal = set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+    equal &= fresh.step == live.step == out["steps_run"]
+    per = DRIVER_B // mesh.size
+    it_batch = {k: torch.from_numpy(np.asarray(
+        getattr(ds.train, k)[mesh.rank * per:(mesh.rank + 1) * per],
+        np.int32)) for k in ("user", "item", "slot")}
+    neg_iw = torch.from_numpy(item_importance_weights(ds.train,
+                                                      ds.num_items))
+    graph = mesh_graph(ds.graph, mesh, cfg.sharding.lookup_mode)
+    losses = []
+    for st in (live, fresh):
+        st, m = train_step(st, graph, it_batch, [5], neg_iw)
+        losses.append(m["loss"].item())
+    a, b = _state_tensors(live), _state_tensors(fresh)
+    equal &= losses[0] == losses[1] and all(torch.equal(a[k], b[k])
+                                            for k in a)
+    res["restore.equal"] = _every_rank(mesh, float(equal))
+    res["restore.loss"] = np.float64(losses[0])
+    before = full_tables(mesh, restored["params"])    # the run's last
+    layouts = []
+    for data, rows in ((1, 4), (4, 1)):
+        m2 = make_mesh(data, rows)
+        got = CheckpointManager(ck, m2).restore("latest", torch.device("cpu"))
+        ok = True
+        for k, v in got["params"].items():
+            per_rows = before[k].shape[0] // m2.num_rows
+            want = before[k][m2.row_index * per_rows:
+                             (m2.row_index + 1) * per_rows] \
+                if "table" in k and v.ndim == 2 else before[k]
+            ok &= torch.equal(v, want)
+        layouts.append(float(ok))
+    res["restore.layouts"] = _every_rank(mesh, layouts)
+
+
+def run_failed_save(mesh, cfg, state, work, res):
+    """A save whose write fails on rank 1 raises on every rank, and the
+    previous save stays the one restored."""
+    mgr = CheckpointManager(os.path.join(work, "crash"), mesh)
+    mgr.save("latest", state, (0, 0), 0.5, 7, block=True)
+    real = ckpt_mod.torch.save
+
+    def torn_save(obj, f, *a, **kw):
+        f.write(b"PK\x03\x04 half a checkpoint")
+        raise OSError("disk full")
+    if mesh.rank == 1:
+        ckpt_mod.torch.save = torn_save
+    raised = 0.0
+    try:
+        mgr.save("latest", state, (0, 2), 0.6, 9, block=True)
+    except RuntimeError as e:
+        raised = float("checkpoint save failed" in str(e))
+    finally:
+        ckpt_mod.torch.save = real
+    got = mgr.restore("latest", torch.device("cpu"))
+    res["crash.rows"] = _every_rank(mesh, [raised, got["step"],
+                                           got["best_val"]])
+
+
+def run_serving(mesh, ds, cfg, inp, ck, res):
+    """ScoringService.from_checkpoint('best') under the mesh: score,
+    score_batch and topk on every rank."""
+    svc = ScoringService.from_checkpoint(cfg, ds, ck, "best", device="cpu",
+                                         mesh=mesh)
+    score = svc.score(int(inp["serve.user"]), inp["serve.items"])
+    batch = svc.score_batch(inp["serve.users"], inp["serve.batch"])
+    items, scores = svc.topk(int(inp["serve.user"]), k=10)
+    res["serve.score"] = _every_rank(mesh, score)
+    res["serve.batch"] = _every_rank(mesh, batch)
+    res["serve.topk_items"] = _every_rank(mesh, items)
+    res["serve.topk_scores"] = _every_rank(mesh, scores)
+
+
+def run_overflow(mesh, ds, res):
+    """At a2a_capacity 1: 'raise' raises RuntimeError naming a2a_capacity
+    on every rank; 'warn' runs the epoch."""
+    rows = []
+    for action in ("raise", "warn"):
+        case = dict(OVERFLOW, sharding=dict(OVERFLOW["sharding"],
+                                            overflow_action=action))
+        cfg = case_config(configs4, case, mesh.num_data, mesh.num_rows)
+        try:
+            out = train(cfg, ds, verbose=False, device="cpu", mesh=mesh)
+            rows.append(float(out["steps_run"]))
+        except RuntimeError as e:
+            rows.append(-1.0 if "a2a_capacity" in str(e) else -2.0)
+    res["overflow.rows"] = _every_rank(mesh, rows)
+
+
+def run_part2(mesh, work, inp, res):
+    ds = load_dataset(os.path.join(work, "data"))
+    run_graph(mesh, ds, res)
+    run_driver(mesh, ds, inp, work, res)
+    run_overflow(mesh, ds, res)
+    res["dryrun.losses"] = _every_rank(mesh, entry.dryrun_rank(mesh))
+    out = train_main(["configs4", os.path.join(work, "data"), "--device",
+                      "cpu", f"sharding.num_data={mesh.num_data}",
+                      f"sharding.num_rows={mesh.num_rows}", *CLI_ARGS])
+    res["cli.rows"] = _every_rank(mesh, [out["steps_run"],
+                                         out["history"][-1]["loss"],
+                                         out["test"]["auc"]])
+
+
 def main(rank: int, world: int, data: int, rows: int, work: str) -> None:
     torch.set_num_threads(1)
     mesh, lookup_fn = bringup(
@@ -276,6 +499,7 @@ def main(rank: int, world: int, data: int, rows: int, work: str) -> None:
         run_steps(mesh, x, {k: v for k, v in PORT_CASES.items()
                             if k != "local"}, res, port_init=True)
         run_loop_overflow(mesh, x, res)
+        run_part2(mesh, work, inp, res)
     else:
         run_steps(mesh, x, {"local": PORT_CASES["local"]}, res,
                   port_init=True)

@@ -3,9 +3,10 @@ host, and without the JAX package: in a fresh interpreter that refuses to
 import jax, flax, optax, orbax, pandas or anything of score_tpu, build a
 dataset with the port's own host layer, score one request and take two
 train steps on the CPU, with the sum pool and with the max pool, evaluate
-the validation split, serve and train a baseline arch (DELF), and run the
+the validation split, serve and train a baseline arch (DELF), run the
 training CLI from a raw CSV log to its test line (configs3, and configs0
-with its preset's uniform negatives).
+with its preset's uniform negatives), and run the entry points
+(score_tpu_torch/entry.py: the forward and the sharded dry run).
 And the port's copies of that host layer (config presets, the synthetic
 generator, dataset prep and its CSV reader, the batch iterator) give
 what the JAX package's give."""
@@ -175,13 +176,21 @@ sstate, m = train_step(sstate, graph, next(TargetIterator(ds.train, 32,
                                                           seed=0)),
                        neg_iw=neg_iw)
 assert int(m["a2a_overflow"]) == 0 and np.isfinite(m["loss"].item()), m
+# the entry points: the configs3 forward, and the sharded dry run (a psum
+# step and 3 a2a steps on the row-sharded graph) in this world of one
+from score_tpu_torch import entry
+
+fn, fargs = entry.entry(device="cpu")
+assert fn(*fargs).shape == (16,)
+dry = entry.dryrun_rank(mesh)
+assert len(dry) == 4 and np.isfinite(dry).all(), dry
 dist.destroy_process_group()
 
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not loaded, loaded
 print("SERVED", scores.tolist(), "TRAINED", losses, "EVALUATED", metrics,
       "BASELINE", bscores.tolist(), blosses, "CLI", test_line[0],
-      "SHARDED", sstate.step)
+      "SHARDED", sstate.step, "DRYRUN", dry)
 """
 
 
@@ -242,6 +251,7 @@ def test_port_serves_and_trains_without_jax(tmp_path):
     assert "BASELINE" in proc.stdout, proc.stdout
     assert "CLI test: auc" in proc.stdout, proc.stdout
     assert "SHARDED 1" in proc.stdout, proc.stdout
+    assert "DRYRUN" in proc.stdout, proc.stdout
 
 
 @pytest.mark.parametrize("name", ["configs0", "configs1", "configs2",

@@ -266,4 +266,5 @@ def test_stored_fanout_past_the_kernels_refused_up_front_on_cuda():
     adj = SimpleNamespace(device=torch.device("cuda"), shape=(0, 8, 65))
     with pytest.raises(NotImplementedError, match="co-attention"):
         ttrain.evaluate(ttrain.make_eval_step(svc.model),
-                        SimpleNamespace(u2i=adj, i2u=adj), ds.val)
+                        SimpleNamespace(u2i=adj, i2u=adj, device=adj.device),
+                        ds.val)

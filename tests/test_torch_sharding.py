@@ -8,7 +8,12 @@ tests/_torch_shard_worker.py, both started once for the module: a
 overflow, and the sharded steps; a (2, 1) world for the 'local'
 data-parallel step. The JAX references are computed here, meanwhile, on
 the fake mesh tests/conftest.py provides (make_mesh(jax.devices()[:4],
-data=2, rows=2)); inputs and results pass as .npz files.
+data=2, rows=2)); inputs and results pass as .npz files. The (2, 2) world
+then runs the rest of configs4 on the test's dataset (saved in its
+directory): the row-sharded graph, `train()` with sharded checkpoints
+against the JAX package's `train()` on the fake mesh, the checkpoints'
+round trips, mesh serving against the JAX package's mesh service, the
+overflow policy, `entry.dryrun_rank` and the CLI's `main`.
 
 Tolerances are the reference's: lookups bit-equal in f32; table
 gradients rtol 1e-4 / atol 1e-6 (duplicate rows pre-reduced in another
@@ -22,6 +27,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -32,16 +38,21 @@ import torch.distributed as dist
 
 from score_tpu import config as jconfig
 from score_tpu import sharding as jsh
+from score_tpu import train as jtrain
 from score_tpu.data.pipeline import TargetIterator
+from score_tpu.data.schema import save_dataset
 from score_tpu.graph import device_graph
+from score_tpu.serve import ScoringService as JaxService
 from score_tpu.train import (build_model, init_state,
                              item_importance_weights, make_train_step)
 from score_tpu_torch import config as tconfig
 from score_tpu_torch import graph as tgraph
 from score_tpu_torch import sharding as tsh
+from score_tpu_torch.checkpoint import CheckpointManager
 from score_tpu_torch.kernels.gather import gather_rows
 from score_tpu_torch.nn.model import check_config
-from score_tpu_torch.params import from_flax, init_params
+from score_tpu_torch.params import from_flax, init_params, to_flax
+from score_tpu_torch.serve import ScoringService
 
 import _torch_shard_worker as worker
 
@@ -81,6 +92,18 @@ def test_state_spec_rules():
     assert tsh.state_spec("tables.user_table", torch.ones(())) == ()
 
 
+def test_graph_spec_rules(tiny_dataset):
+    """The reference's graph rule on the port's node-major graph: the
+    adjacency and counts are cut on the node axis, as P('rows', None,
+    None) and P('rows', None)."""
+    g = tgraph.device_graph(tiny_dataset.graph, "cpu")
+    for name in ("u2i", "u2i_cnt", "i2u", "i2u_cnt"):
+        t = getattr(g, name)
+        want = jsh.graph_spec(name, t.numpy())
+        assert tsh.graph_spec(name, t) == tuple(want), name
+    assert tsh.graph_spec("n", torch.ones(())) == ()
+
+
 def _fake_mesh(data, rows, rank=0):
     """A Mesh with no groups, for what needs no collective."""
     return tsh.Mesh(data, rows, rank, None, None, torch.device("cpu"))
@@ -110,8 +133,11 @@ def test_shard_state_refuses_rows_that_do_not_split(tiny_dataset):
 
 
 def test_check_config_needs_a_mesh_of_the_config_shape():
+    """A sharded config trains only under a mesh of its shape: without one
+    it is refused, naming the mesh and torchrun, never run unsharded."""
     cfg = tconfig.configs4(2, 2)
-    with pytest.raises(NotImplementedError, match="part 2"):
+    with pytest.raises(NotImplementedError,
+                       match="under a mesh.*torch.distributed.run"):
         check_config(cfg)
     with pytest.raises(ValueError, match="mesh"):
         check_config(cfg, _fake_mesh(1, 4))
@@ -122,19 +148,29 @@ def test_check_config_needs_a_mesh_of_the_config_shape():
 
 
 @pytest.mark.parametrize("entry", ["service", "train"])
-def test_service_and_train_refuse_configs4(tiny_dataset, entry):
-    """Serving and the driver under a mesh are sharding part 2: configs4
-    is refused, not run unsharded."""
+def test_service_and_train_refuse_configs4(tiny_dataset, entry, monkeypatch):
+    """Without a mesh, ScoringService serves configs4's weights whole, on
+    one device, as configs3 on the same weights (the reference's
+    mesh=None); train() outside any world refuses configs4, naming
+    torchrun and train(..., mesh=), and does not run it unsharded."""
     from score_tpu_torch.serve import ScoringService
     from score_tpu_torch.train import train
     ds = tiny_dataset
     cfg = worker.case_config(tconfig.configs4, {})
-    with pytest.raises(NotImplementedError, match="part 2"):
-        if entry == "service":
-            sd = init_params(cfg, ds.num_users, ds.num_items,
-                             torch.Generator().manual_seed(0))
-            ScoringService(cfg, ds, sd, device="cpu")
-        else:
+    if entry == "service":
+        sd = init_params(cfg, ds.num_users, ds.num_items,
+                         torch.Generator().manual_seed(0))
+        cfg3 = cfg.replace(sharding=tconfig.configs3().sharding)
+        items = np.arange(1, 22)
+        got = ScoringService(cfg, ds, sd, device="cpu").score(3, items)
+        want = ScoringService(cfg3, ds, sd, device="cpu").score(3, items)
+        np.testing.assert_array_equal(got, want)
+    else:
+        for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR"):
+            monkeypatch.delenv(k, raising=False)
+        assert not dist.is_initialized()
+        with pytest.raises(RuntimeError,
+                           match=r"torch.distributed.run.*mesh="):
             train(cfg, ds, verbose=False, device="cpu")
 
 
@@ -232,6 +268,14 @@ def _inputs(ds, sds, draws) -> dict:
     for arch, sd in sds.items():
         inp.update({f"sd.{arch}.{k}": v.numpy() for k, v in sd.items()})
     inp.update(draws)
+    users = np.unique(ds.test.user)
+    inp["serve.user"] = users[0]
+    inp["serve.items"] = rng.choice(np.arange(1, ds.num_items + 1),
+                                    worker.SERVE_ITEMS, replace=False)
+    inp["serve.users"] = users[1:1 + worker.SERVE_USERS]
+    inp["serve.batch"] = rng.integers(
+        1, ds.num_items + 1, (worker.SERVE_USERS, worker.SERVE_WIDTH)
+    ).astype(np.int32)
     return inp
 
 
@@ -260,6 +304,12 @@ def _reference_draws(ds, rng) -> dict:
             out[f"draw.{name}.shifts"] = np.stack(shifts)
         if negs:
             out[f"draw.{name}.neg"] = np.stack(negs)
+    # the driver's in-batch shift of each step, as score_tpu/train.py
+    # draws it: randint(fold_in(PRNGKey(seed), step), (1,), 1, B)
+    steps = len(ds.train) // worker.DRIVER_B
+    out["driver.shifts"] = np.stack([np.asarray(jax.random.randint(
+        jax.random.fold_in(rng, s), (1,), 1, worker.DRIVER_B,
+        dtype=jnp.int32)) for s in range(steps)])
     return out
 
 
@@ -371,6 +421,24 @@ def _jax_steps(ds, mesh, rng, inp) -> dict:
     return ref
 
 
+def _jax_driver(ds) -> dict:
+    """The JAX package's train() on configs4(2, 2) (the fake mesh of its
+    first 4 devices). Its init_state runs the model's a2a lookups op by op
+    (~50 s here); the params do not depend on the lookup, so it is given
+    the same model without one for the init alone (the steps and evals
+    run the a2a model, as train() builds it)."""
+    real = jtrain.init_state
+
+    def init_state_unsharded(cfg, model, graph, rng, steps_per_epoch=0):
+        return real(cfg, model.clone(lookup_fn=None), graph, rng,
+                    steps_per_epoch)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jtrain, "init_state", init_state_unsharded)
+        return jtrain.train(worker.case_config(jconfig.configs4,
+                                               worker.DRIVER),
+                            ds, verbose=False)
+
+
 @pytest.fixture(scope="module")
 def worlds(tiny_dataset, tmp_path_factory):
     """Both worlds' results and the JAX references: the worlds start as
@@ -390,14 +458,17 @@ def worlds(tiny_dataset, tmp_path_factory):
         for name, world, data, rows in (("w4", 4, 2, 2), ("w2", 2, 2, 1)):
             work = tmp_path_factory.mktemp(name)
             np.savez(work / "inputs.npz", **inp)
+            if name == "w4":
+                save_dataset(ds, str(work / "data"))
             runs[name] = (work, _spawn(work, world, data, rows))
         mesh = jsh.make_mesh(jax.devices()[:4], data=2, rows=2)
         ref = _jax_lookups(mesh, inp)
         ref.update(_jax_steps(ds, mesh, rng, inp))
+        ref["driver"] = _jax_driver(ds)
     finally:
         out = {name: _join(work, procs) for name, (work, procs)
                in runs.items()}
-    return dict(ref=ref, inp=inp, **out)
+    return dict(ref=ref, inp=inp, work=runs["w4"][0], mesh=mesh, **out)
 
 
 def _params(res, key):
@@ -580,3 +651,206 @@ def test_local_data_parallel_step_matches_unsharded(worlds):
                                    err_msg=key, **LOSS_TOL)
         _close_params(_params(res, key), _params(res, plain), key)
         assert int(res[f"{key}.overflow"]) == 0
+
+
+# --- the graph, the driver, checkpoints and serving under a mesh -----------
+
+def _same_on_every_rank(rows):
+    """rows [world, ...]: every rank's value; all equal, rank 0's back."""
+    for r in rows[1:]:
+        np.testing.assert_array_equal(r, rows[0])
+    return rows[0]
+
+
+@pytest.mark.parametrize("form", ["batch", "cand"])
+def test_sharded_graph_gathers_match_whole_graph(worlds, tiny_dataset,
+                                                 form):
+    """gather_batch and gather_candidate_batch through the row-sharded
+    graph (each side's rows from their owners, one exchange a side) on
+    every rank: bit-equal to the whole graph's gathers, in the rank, and
+    here for the histories and counts of every rank's rows."""
+    res = worlds["w4"]
+    assert _same_on_every_rank(res["graph.equal"]) == 1.0
+    g = tgraph.device_graph(tiny_dataset.graph, "cpu")
+    t = tiny_dataset.train
+    B = worker.DRIVER_B
+    u, i, sl = (torch.from_numpy(np.asarray(getattr(t, k)[:B], np.int32))
+                for k in ("user", "item", "slot"))
+    if form == "batch":
+        want = tgraph.gather_batch(g, u, i, sl)
+    else:   # each rank rolls its own rows' items
+        per = B // 4
+        cand = torch.cat([torch.stack(
+            [c, torch.roll(c, 3), torch.roll(c, 7)], dim=1)
+            for c in i.split(per)])
+        want = tgraph.gather_candidate_batch(g, u, cand, sl)
+    for k in ("u_hist", "u_cnt", "i_hist", "i_cnt"):
+        got = res[f"graph.{form}.{k}"]
+        assert got.dtype == np.int32
+        np.testing.assert_array_equal(got, want[k].numpy(), err_msg=k)
+
+
+DRIVER_TOL = 1e-4
+
+
+def test_sharded_driver_matches_jax(worlds):
+    """train() on configs4(2, 2) from the JAX init with JAX's shifts
+    against the JAX package's train() on the fake mesh: the same val
+    steps, best step and steps run (45), every val row's metrics and loss
+    and the test metrics within 1e-4; the same numbers on every rank."""
+    row = _same_on_every_rank(worlds["w4"]["driver.rows"])
+    want = worlds["ref"]["driver"]
+    n = int(worlds["w4"]["driver.nvals"])
+    assert n == len(want["history"]) == 3
+    keys = ("step",) + worker.DRIVER_METRICS + ("loss",)
+    for j, w in enumerate(want["history"]):
+        got = dict(zip(keys, row[j * len(keys):(j + 1) * len(keys)]))
+        assert got["step"] == w["step"]
+        for k in keys[1:]:
+            assert abs(got[k] - w[k]) <= DRIVER_TOL, (w["step"], k)
+    test = row[n * len(keys):n * len(keys) + len(worker.DRIVER_METRICS)]
+    for k, v in zip(worker.DRIVER_METRICS, test):
+        assert abs(v - want["test"][k]) <= DRIVER_TOL, k
+    steps_run, best_step, best_auc = row[-3:]
+    assert steps_run == want["steps_run"] == 45
+    assert best_step == want["best_step"]
+    assert abs(best_auc - want["best_val_auc"]) <= DRIVER_TOL
+
+
+def test_sharded_latest_restores_bit_equal(worlds):
+    """`latest` restored under the mesh into a state from other weights:
+    every block and optimizer state bit-equal to the live ones, and one
+    train_step from each bit-equal (loss and params), on every rank; and
+    restored into the (1, 4) and (4, 1) layouts, each rank's rows
+    bit-equal to the saved tables'."""
+    res = worlds["w4"]
+    assert _same_on_every_rank(res["restore.equal"]) == 1.0
+    assert np.isfinite(res["restore.loss"])
+    np.testing.assert_array_equal(res["restore.layouts"],
+                                  np.ones((4, 2)))
+
+
+def test_sharded_failed_save_keeps_previous(worlds):
+    """A save whose write fails on one rank raises on every rank; the
+    previous save (step 7, best val 0.5) is the one restored, and the
+    failed save's partial files are never committed."""
+    rows = worlds["w4"]["crash.rows"]
+    np.testing.assert_array_equal(rows, np.tile([1.0, 7.0, 0.5], (4, 1)))
+
+
+def test_best_restored_whole_serves_as_full_tables(worlds, tiny_dataset):
+    """`best` restored whole here (mesh=None, every file read) equals the
+    run's best weights gathered whole, and the service on it (configs4
+    served whole) scores bit-equal to a service on those weights."""
+    res, ds = worlds["w4"], tiny_dataset
+    best = {k[len("best.param."):]: torch.from_numpy(v)
+            for k, v in res.items() if k.startswith("best.param.")}
+    restored = CheckpointManager(str(worlds["work"] / "ck")).restore(
+        "best", torch.device("cpu"))
+    assert set(restored["params"]) == set(best)
+    for k, v in best.items():
+        assert torch.equal(restored["params"][k], v), k
+    cfg = worker.case_config(tconfig.configs4, worker.DRIVER)
+    inp = worlds["inp"]
+    a = ScoringService(cfg, ds, restored["params"], device="cpu")
+    b = ScoringService(cfg, ds, best, device="cpu")
+    np.testing.assert_array_equal(
+        a.score_batch(inp["serve.users"], inp["serve.batch"]),
+        b.score_batch(inp["serve.users"], inp["serve.batch"]))
+
+
+SERVE_TOL = 1e-4
+
+
+def test_mesh_serving_matches_jax_mesh_service(worlds, tiny_dataset):
+    """ScoringService.from_checkpoint('best', mesh=) in the (2, 2) world:
+    score (21 items), score_batch 4 x 64 and topk k=10 the same on every
+    rank, and within 1e-4 of the JAX package's ScoringService(mesh=,
+    lookup_fn=a2a) on the same weights."""
+    res, ds, inp = worlds["w4"], tiny_dataset, worlds["inp"]
+    best = {k[len("best.param."):]: torch.from_numpy(v)
+            for k, v in res.items() if k.startswith("best.param.")}
+    mesh = worlds["mesh"]
+    jcfg = worker.case_config(jconfig.configs4, worker.DRIVER)
+    ref = JaxService(jcfg, ds, to_flax(best), mesh=mesh,
+                     lookup_fn=jsh.make_lookup_fn(mesh, "a2a"))
+    user = int(inp["serve.user"])
+    np.testing.assert_allclose(_same_on_every_rank(res["serve.score"]),
+                               ref.score(user, inp["serve.items"]),
+                               rtol=SERVE_TOL, atol=SERVE_TOL)
+    np.testing.assert_allclose(
+        _same_on_every_rank(res["serve.batch"]),
+        ref.score_batch(inp["serve.users"], inp["serve.batch"]),
+        rtol=SERVE_TOL, atol=SERVE_TOL)
+    items = _same_on_every_rank(res["serve.topk_items"])
+    scores = _same_on_every_rank(res["serve.topk_scores"])
+    wi, ws = ref.topk(user, k=10)
+    np.testing.assert_allclose(np.sort(scores), np.sort(ws),
+                               rtol=SERVE_TOL, atol=SERVE_TOL)
+    assert set(items.astype(int)) == set(np.asarray(wi).tolist())
+
+
+def test_overflow_action_raises_or_warns_on_every_rank(worlds, tiny_dataset):
+    """At a2a_capacity 1 (tests/test_sharding.py's policy test):
+    overflow_action 'raise' raises RuntimeError naming a2a_capacity on
+    every rank, none hangs; 'warn' runs all 45 steps of the epoch."""
+    rows = worlds["w4"]["overflow.rows"]
+    steps = len(tiny_dataset.train) // worker.DRIVER_B
+    np.testing.assert_array_equal(rows, np.tile([-1.0, steps], (4, 1)))
+
+
+def test_dryrun_and_cli_in_the_world(worlds, tiny_dataset):
+    """entry.dryrun_rank: one psum step and 3 a2a steps through
+    train_loop, finite and equal on every rank; the CLI's main(['configs4',
+    <dir>, '--device', 'cpu', ...]) in the world: the planned 22 steps of
+    batch 512, finite loss and test AUC, the same on every rank."""
+    losses = _same_on_every_rank(worlds["w4"]["dryrun.losses"])
+    assert losses.shape == (4,) and np.isfinite(losses).all()
+    steps, loss, auc = _same_on_every_rank(worlds["w4"]["cli.rows"])
+    assert steps == len(tiny_dataset.train) // 512
+    assert np.isfinite(loss) and 0.0 <= auc <= 1.0
+
+
+@pytest.mark.parametrize("data,rows", [(1, 1), (1, 4), (2, 8)])
+def test_restore_reads_only_the_files_of_its_rows(worlds, monkeypatch,
+                                                  data, rows):
+    """The (2, 2) world's `best` restored here into other layouts (a mesh
+    needs no collective to restore): each rank's tables and optimizer
+    state are its rows of the whole, and it opens only the dense file and
+    the rows files that hold them; an unsharded checkpoint of the same
+    weights restores into the layout alike."""
+    import score_tpu_torch.checkpoint as tckpt
+    ck = str(worlds["work"] / "ck")
+    whole = CheckpointManager(ck).restore("best", torch.device("cpu"))
+    flat = CheckpointManager(str(worlds["work"] / "flat"))
+    state = SimpleNamespace(
+        model=SimpleNamespace(state_dict=lambda: whole["params"]),
+        opt=SimpleNamespace(state=lambda: whole["opt_state"]))
+    flat.save("best", state, (0, 0), whole["best_val"], whole["step"],
+              block=True)
+    opened = []
+    real = tckpt.torch.load
+    monkeypatch.setattr(tckpt.torch, "load", lambda f, **kw: (
+        opened.append(os.path.basename(f)), real(f, **kw))[1])
+    for r in range(data * rows):
+        mesh = _fake_mesh(data, rows, rank=r)
+        for src in (ck, flat.directory):
+            opened.clear()
+            got = CheckpointManager(src, mesh).restore("best", "cpu")
+            for k, v in whole["params"].items():
+                per = v.shape[0] // rows
+                want = (v[mesh.row_index * per:(mesh.row_index + 1) * per]
+                        if tsh.state_spec(k, v) else v)
+                assert torch.equal(got["params"][k], want), (src, r, k)
+                mu = whole["opt_state"]["mu"][k]
+                want_mu = (mu[mesh.row_index * per:
+                              (mesh.row_index + 1) * per]
+                           if tsh.state_spec(k, v) else mu)
+                assert torch.equal(got["opt_state"]["mu"][k], want_mu)
+            assert got["step"] == whole["step"]
+            if src == ck:       # saved over 2 row blocks
+                lo = mesh.row_index * 2 // rows
+                hi = max(lo, ((mesh.row_index + 1) * 2 - 1) // rows)
+                want_files = {"dense.pt"} | {f"rows-{j}-of-2.pt"
+                                             for j in range(lo, hi + 1)}
+                assert set(opened) == want_files, (r, opened)

@@ -202,8 +202,10 @@ def test_restored_odd_count_resumes_stride(setup):
 @pytest.mark.parametrize("entry", ["init_state", "ScoringService"])
 @pytest.mark.parametrize("case", ["configs4", "param_dtype"])
 def test_refuses_sharded_and_non_f32_params(tiny_dataset, entry, case):
-    """configs4 must not run as configs3 on one device, and bf16 master
-    weights are not ported (the table-gradient kernel takes f32)."""
+    """configs4 must not train as configs3 on one device (ScoringService
+    without a mesh serves its weights whole, as the reference's mesh=None
+    does), and bf16 master weights are not ported (the table-gradient
+    kernel takes f32)."""
     ds = tiny_dataset
     if case == "configs4":       # otherwise as the port trains configs3
         base = configs4()
@@ -215,6 +217,10 @@ def test_refuses_sharded_and_non_f32_params(tiny_dataset, entry, case):
             base.model, param_dtype="bfloat16"))
     w = init_params(base, ds.num_users, ds.num_items,
                     torch.Generator().manual_seed(0))
+    if case == "configs4" and entry == "ScoringService":
+        scores = ScoringService(cfg, ds, w, device="cpu").score(1, [1, 2])
+        assert scores.shape == (2,) and np.isfinite(scores).all()
+        return
     with pytest.raises(NotImplementedError):
         if entry == "init_state":
             ttrain.init_state(cfg, ds.num_users, ds.num_items, w,
