@@ -31,7 +31,11 @@ fails or no CUDA device is present.
    grouped backward of a table's lookups must run a memset and the
    scatter kernel and no other kernel. It is exact on integer-valued
    sources and within 1e-5 relative of `index_add_` on random ones (f32
-   atomics add in no fixed order); the
+   atomics add in no fixed order). Its bf16 form (bf16 tables: an f32
+   workspace, one rounding pass) on configs3's in-batch segments rounded
+   to bf16: within 1 bf16 ulp of the f64 sum rounded, beside bf16
+   `index_add_`, and its grouped backward a memset, the scatter kernel
+   and the rounding kernel only; the
    co-attention backwards' ([coattn_bwd] sum; [coattn_pair_bwd] sum and
    mean) five gradients agree to 1e-4 in f32 and 2e-2 in bf16, relative
    to each gradient's largest value.
@@ -151,6 +155,19 @@ fails or no CUDA device is present.
    keys. Last, `debug.checked_lookup` on the card raises on an
    out-of-range id. Phase 2 holds the gather to its plain version at the
    stored width too ([90560,180] ids [4096,2], [50048,180] ids [4096]).
+9b. bf16 parameters ([bf16params]): configs3 with model.param_dtype
+   bf16 (bf16 tables and Adam moments): 3 small f32-compute steps card
+   against CPU (losses within bf16's rtol, tables within 2 lr x boost a
+   table step and 2% of entries past 1 ulp, dense leaves within 2 lr a
+   step); then at the bench width (sum pool, B=4096, bf16 compute,
+   in-batch IW, stride 2 at 2x) beside f32 parameters from the same init
+   and shifts: the bytes init_state takes on the device and those of the
+   tables and moments, 3 warm-up steps and 50 steps each in turns of 10
+   (the bf16 run's launches counted: two bf16 scatter-adds a table-update
+   step), the loss falling, step ms, a val, a profile of each; a
+   `latest` checkpoint restored bit-equal; a 4 x 256 request card against
+   CPU; `score` p50 at 1 x 101 and `score_batch` at 16 x 4096 of both in
+   turns.
 10. Sharding ([shard]): a one-rank NCCL world through `sharding.bringup`
    (a file store in a temporary directory; a multi-rank world needs a
    card a rank). The a2a and psum lookups into configs3's item table, f32
@@ -166,7 +183,9 @@ fails or no CUDA device is present.
    tolerance (the tables part: the local step sums a rolled negative's
    gradient in bf16, the sharded one in f32), then 20 steps of each in
    turns (local, a2a, a2a, local, 5 steps each), the gather and
-   scatter-add launched under the sharded steps, each profiled; an a2a
+   scatter-add launched under the sharded steps, each profiled; with
+   bf16 parameters (f32 compute) 3 local steps, each beside an a2a step
+   from the same state, as [bf16params] holds two runs; an a2a
    step at a2a_capacity 1000, whose a2a_overflow must equal the uniques
    past it that the host counts in its four lookups' ids. Then
    configs4(1, 1) in the same world (a2a, sum pool, in-batch IW,
@@ -191,7 +210,9 @@ the library call's time beside its bound (the candidates forward also
 gives its time and bound at the training shape, B=4096 C=2, where its
 launches are counted, and the per-pair forward its mean pool's there, by
 CUDA graph; the wide kernels their d=64 training shape's, sum pool, with
-the launches of the [d64] sum-pool run); the last line is
+the launches of the [d64] sum-pool run; the scatter-add also its bf16
+form's, `bf16_*`, with the launches of the [bf16params] run); the last
+line is
 {"ok": true, "device": {...}}. Every timing line carries the card's name
 and power limit.
 """
@@ -772,6 +793,58 @@ def _scatter_line(card, label, ids, src, V, lib_tables=None) -> dict:
                 library_ms=lib_ms, **b)
 
 
+def bf16_ulps(got: torch.Tensor, exact: torch.Tensor,
+              floor: float = 2.0 ** -126) -> torch.Tensor:
+    """|got - exact| in bf16 ulps of the larger magnitude, or of `floor`
+    where both are below it (f64)."""
+    got, exact = got.double(), exact.double()
+    m = torch.maximum(got.abs(), exact.abs()).clamp_min(floor)
+    return (got - exact).abs() / torch.exp2(torch.floor(torch.log2(m)) - 7)
+
+
+def _bf16_scatter_line(card, label, ids, src, V) -> dict:
+    """The scatter-add's bf16 form on the segments' gradients rounded to
+    bf16, into a bf16 [V, W] table: every entry within 1 bf16 ulp of the
+    f64 sum rounded to bf16, the largest distance from the plain version
+    (index_add_ in f32, one rounding) given; timed eagerly and by CUDA
+    graph, beside the plain version and bf16 `index_add_` of the same
+    segments (one PyTorch call, which rounds at every add), and its bound
+    by bytes: the bf16 sources, the ids and the bf16 table written
+    once."""
+    from score_tpu_torch.kernels.gather import (scatter_add_rows,
+                                                scatter_add_rows_plain)
+    src = [x.to(torch.bfloat16) for x in src]
+    W = src[0].shape[-1]
+    got = scatter_add_rows(ids, src, V)
+    exact = torch.zeros(V, W, dtype=torch.float64, device=got.device)
+    for i, x in zip(ids, src):
+        exact.index_add_(0, i.reshape(-1), x.reshape(-1, W).double())
+    ulps = bf16_ulps(got, exact).max().item()
+    if got.dtype != torch.bfloat16 or ulps > 1.0:
+        raise AssertionError(f"[scatter bf16] {label}: {got.dtype}, "
+                             f"{ulps:.3f} bf16 ulps from the exact sum")
+    want = scatter_add_rows_plain(ids, src, V)
+    err = (got.double() - want.double()).abs().max().item()
+    ms = cuda_ms(lambda: scatter_add_rows(ids, src, V))
+    gms = graph_ms(lambda: scatter_add_rows(ids, src, V))
+    plain_ms = cuda_ms(lambda: scatter_add_rows_plain(ids, src, V))
+    zeros = torch.zeros(V, W, dtype=torch.bfloat16, device=got.device)
+    flat_ids = torch.cat([x.reshape(-1) for x in ids])
+    flat_src = torch.cat([x.reshape(-1, W) for x in src])
+    lib_ms = cuda_ms(lambda: torch.index_add(zeros, 0, flat_ids, flat_src))
+    b = bound(nbytes(*src, *ids, got),
+              sum((x != 0).sum().item() for x in src))
+    log(f"[scatter bf16] {label}: within {ulps:.3f} bf16 ulps of the "
+        f"exact sum rounded (tol 1), max_abs_err against the plain version "
+        f"{err:.3e}; kernel {ms:.4f} ms eagerly, {gms:.4f} ms by graph; "
+        f"plain {plain_ms:.4f} ms, bf16 index_add {lib_ms:.4f} ms; bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]")
+    return dict(bf16_max_abs_err=err, bf16_max_ulps=ulps, bf16_ms=ms,
+                bf16_graph_ms=gms, bf16_plain_ms=plain_ms,
+                bf16_library_ms=lib_ms, bf16_bound_ms=b["bound_ms"],
+                bf16_bound_by=b["bound_by"])
+
+
 def _real_segments(ds, dev, rung: str, neg: str, gen) -> dict:
     """Each table's lookups (ids, and a random gradient that is zero where
     the model masks the slot) of one training batch of the bench dataset,
@@ -809,14 +882,16 @@ def _real_segments(ds, dev, rung: str, neg: str, gen) -> dict:
             "user": (round_up(1 + ds.num_users), users, user_src)}
 
 
-def check_grouped_backward_kernels(card: str, dev) -> None:
+def check_grouped_backward_kernels(card: str, dev,
+                                   dtype=torch.float32) -> None:
     """The backward of one table's grouped lookups runs a memset and the
-    scatter-add kernel and nothing else: no fill and no add of a dense
-    table gradient (torch.profiler's CUDA kernels of that backward)."""
+    scatter-add kernel (of a bf16 table, also its rounding pass) and
+    nothing else: no fill and no add of a dense table gradient
+    (torch.profiler's CUDA kernels of that backward)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from score_tpu_torch.kernels.gather import gather_rows_grouped
-    table = torch.randn(90560, D, device=dev, requires_grad=True)
+    table = torch.randn(90560, D, device=dev).to(dtype).requires_grad_(True)
     ids = [torch.randint(0, 90560, s, device=dev, dtype=torch.int32)
            for s in ((BATCH, 1), (BATCH, T, FAN))]
     outs = gather_rows_grouped(table, ids)
@@ -829,12 +904,17 @@ def check_grouped_backward_kernels(card: str, dev) -> None:
         torch.cuda.synchronize()
     names = sorted({ev.key for ev in prof.key_averages()
                     if ev.device_type == DeviceType.CUDA})
+    want = ["scatter_add_kernel"] + (["scatter_add_round_kernel"]
+                                     if dtype == torch.bfloat16 else [])
     kernels = [k for k in names if "memset" not in k.lower()]
-    if not names or any("scatter_add_kernel" not in k for k in kernels):
-        raise AssertionError(f"[scatter] the grouped backward ran {names}; "
-                             f"expected a memset and scatter_add_kernel")
-    log(f"[scatter] the grouped backward of 2 lookups runs {names} and no "
-        f"other kernel [{card}]")
+    found = sorted(w for w in want if any(w in k for k in kernels))
+    if (not names or found != sorted(want)
+            or any(not any(w in k for w in want) for k in kernels)):
+        raise AssertionError(f"[scatter] the grouped backward of a "
+                             f"{dtype} table ran {names}; expected a memset "
+                             f"and {want}")
+    log(f"[scatter] the grouped backward of 2 lookups into a {dtype} "
+        f"table runs {names} and no other kernel [{card}]")
 
 
 def phase_scatter(card: str, dev, gen, ds) -> dict:
@@ -843,7 +923,8 @@ def phase_scatter(card: str, dev, gen, ds) -> dict:
     the real ids of one training batch of the bench dataset (configs3 with
     in-batch and with uniform negatives, configs0's shared table). Returns
     the kernels-line fields of the main path's call: configs3's item table
-    with in-batch negatives."""
+    with in-batch negatives, and (`bf16_*`) the bf16 form's on the same
+    segments rounded to bf16."""
     # training's four lookups one at a time: (table rows, ids shape, width)
     cases = [("item [90560,32] ids [4096,9,10]", 90560, (BATCH, T, FAN), D),
              ("item [90560,32] ids [4096,1]", 90560, (BATCH, 1), D),
@@ -879,9 +960,13 @@ def phase_scatter(card: str, dev, gen, ds) -> dict:
                      f"{' + '.join(str(list(x.shape)) for x in ids)}")
             out = _scatter_line(card, label, ids, src, V)
             worst = max(worst, out["max_abs_err"])
+            if (rung, neg) == ("configs3", "inbatch"):
+                # the bf16 form at the shapes of bf16-parameter training
+                out.update(_bf16_scatter_line(card, label, ids, src, V))
             if line is None:
                 line = out
     check_grouped_backward_kernels(card, dev)
+    check_grouped_backward_kernels(card, dev, torch.bfloat16)
     torch.cuda.empty_cache()
     line["max_abs_err"] = worst
     return line
@@ -1204,6 +1289,7 @@ def reset_counts() -> dict:
                cross_coattn_wide_bwd=cross_coattn_wide_bwd)
     for fn in fns.values():
         fn.launches = 0
+    scatter_add_rows.launches_bf16 = 0      # of its launches, the bf16 form's
     return fns
 
 
@@ -1520,8 +1606,9 @@ def steps_vs_cpu(ds, cfg, tag: str, devices=("cuda", "cpu"), shifts=None,
     the attention scores are near 0, the softmaxes near uniform, and every
     co-attention pool gives the same losses), batches and in-batch shifts
     or raw uniform negatives, and each step's dropout masks and
-    re-sampling keys when given (host tensors). Returns the first
-    device's losses."""
+    re-sampling keys when given (host tensors); with bf16 parameters held
+    as `bf16_params_close` holds them. Returns the first device's
+    losses."""
     from score_tpu_torch.graph import device_graph
     from score_tpu_torch.params import init_params
     from score_tpu_torch.train import (init_state, item_importance_weights,
@@ -1559,6 +1646,9 @@ def steps_vs_cpu(ds, cfg, tag: str, devices=("cuda", "cpu"), shifts=None,
         out[device] = (losses, {k: v.detach().cpu() for k, v in
                                 state.model.named_parameters()})
     card, cpu = (out[d] for d in devices)
+    if cfg.model.param_dtype == "bfloat16":
+        bf16_params_close(tag, cfg, card, cpu, steps=len(batches))
+        return card[0]
     np.testing.assert_allclose(card[0], cpu[0], **LOSS_TOL)
     worst, where = 0.0, None
     for k, want in cpu[1].items():
@@ -1577,6 +1667,59 @@ def steps_vs_cpu(ds, cfg, tag: str, devices=("cuda", "cpu"), shifts=None,
         f"{card[0]} vs {cpu[0]}; params max_abs_err "
         f"{worst:.3e} ({where}; tol {TRAIN_CPU_TOL})")
     return card[0]
+
+
+# bf16 parameters, one run against another (tests/test_torch_bf16_params.py's
+# chained bounds): the share of a table's entries more than 1 bf16 ulp
+# apart (ulps of the larger of the entry and an Adam step, lr x boost);
+# every entry within 2 lr x boost a table step (Adam moves an entry by a
+# full step whichever side of 0 its gradient lands), a dense leaf within
+# 2 lr a step; the losses within bf16's rtol
+BF16_TABLE_ULP_SHARE = 0.02
+BF16_LOSS_RTOL = 2 ** -8
+
+
+def bf16_params_close(tag: str, cfg, got, want, steps: int,
+                      dense_tol=None, start: int = 0) -> None:
+    """(losses, params) of a bf16-parameter run `got` against `want` from
+    the same state after steps start, ..., start + steps - 1 (stride
+    cfg.train's): the losses, tables and dense leaves within the bounds
+    above (`dense_tol`: an assert_close tolerance for the dense leaves in
+    place of theirs); the largest distances logged."""
+    tc = cfg.train
+    table_steps = sum(1 for j in range(start, start + steps)
+                      if j % max(tc.table_update_every, 1) == 0)
+    np.testing.assert_allclose(got[0], want[0], rtol=BF16_LOSS_RTOL)
+    far = {}
+    for k, w in want[1].items():
+        g = got[1][k]
+        if g.dtype != w.dtype:
+            raise AssertionError(f"{tag} {k}: {g.dtype} against {w.dtype}")
+        d = (g.double().cpu() - w.double().cpu()).abs().max().item()
+        if "table" in k:
+            if w.dtype != torch.bfloat16:
+                raise AssertionError(f"{tag} {k} is {w.dtype}")
+            step = tc.learning_rate * tc.table_lr_boost
+            share = (bf16_ulps(g.cpu(), w.cpu(), step) > 1
+                     ).double().mean().item()
+            most = 2 * step * table_steps
+            if share > BF16_TABLE_ULP_SHARE or d > most:
+                raise AssertionError(f"{tag} {k}: {share:.4f} of entries "
+                                     f"past 1 ulp, {d:.3e} apart (bounds "
+                                     f"{BF16_TABLE_ULP_SHARE}, {most:.1e})")
+            far[k] = (round(share, 5), d)
+        elif dense_tol is not None:
+            torch.testing.assert_close(g.cpu(), w.cpu(), msg=k, **dense_tol)
+            far[k] = d
+        elif d > 2 * tc.learning_rate * steps:
+            raise AssertionError(f"{tag} {k}: {d:.3e} apart")
+        else:
+            far[k] = d
+    dense = max((v, k) for k, v in far.items() if "table" not in k)
+    log(f"{tag} bf16 parameters, {steps} steps: losses {got[0]} vs "
+        f"{want[0]} (rtol {BF16_LOSS_RTOL:.2e}); tables (share past 1 ulp, "
+        f"max |diff|) {({k: v for k, v in far.items() if 'table' in k})}; "
+        f"dense max |diff| {dense[0]:.3e} ({dense[1]})")
 
 
 def check_pools_differ(tag: str, losses: dict) -> None:
@@ -2301,6 +2444,231 @@ def phase_trainer(card: str, ds, dev) -> dict:
     return out
 
 
+# --- phase 9b: [bf16params] -------------------------------------------------
+
+# the bench run at f32 and bf16 parameters, its 50 steps in turns of 10
+PARAMS_TURN = 10
+PARAMS_ORDER = ("float32", "bfloat16", "bfloat16", "float32", "float32",
+                "bfloat16", "bfloat16", "float32", "float32", "bfloat16")
+PARAMS_SERVE_CALLS = 25        # `score` calls a turn, 4 turns
+PARAMS_BATCH_CALLS = 5         # `score_batch` calls a turn
+
+
+def params_config(param_dtype: str, dtype: str = "bfloat16",
+                  width: bool = True):
+    """bench_config(dtype) (configs3, sum pool, in-batch IW, stride 2 at
+    2x) with model.param_dtype `param_dtype`."""
+    cfg = bench_config(dtype, width)
+    return cfg.replace(model=dataclasses.replace(cfg.model,
+                                                 param_dtype=param_dtype))
+
+
+def _table_state_bytes(state) -> int:
+    """The bytes of the tables and of their optimizer state."""
+    tables = {k: p for k, p in state.model.named_parameters()
+              if "table" in k}
+    return nbytes(*tables.values(), *(getattr(state.opt, key)[k]
+                                      for key in state.opt.state_keys
+                                      for k in tables))
+
+
+def phase_bf16params(card: str, ds, dev) -> dict:
+    """Phase 9b ([bf16params]): configs3 with model.param_dtype bf16 (bf16
+    tables and Adam moments). 3 small steps on the card against the CPU
+    (f32 compute, batch 256); then at the bench width (bf16 compute,
+    B=4096, in-batch IW, stride 2 at 2x) beside the same config at f32
+    parameters, from the same init and shifts: the device bytes each
+    init_state takes, 3 warm-up steps each (tables change on steps 0 and
+    2 only), 50 steps each in turns of 10 (bf16 parameters' launches
+    counted: the sum pool's kernels, two bf16 scatter-adds a table-update
+    step and no f32 one), in which the loss must fall; step ms, a val on
+    EVAL_TARGETS targets and a profile of each. Then a `latest`
+    checkpoint of the bf16 state restored bit-equal into another, a 4 x
+    256 request card against CPU, and ScoringService's score p50 (1 x
+    101) and score_batch (16 x 4096) of both in turns."""
+    from score_tpu_torch.checkpoint import CheckpointManager, apply_restore
+    from score_tpu_torch.graph import device_graph
+    from score_tpu_torch.kernels.gather import scatter_add_rows
+    from score_tpu_torch.params import init_params
+    from score_tpu_torch.serve import ScoringService
+    from score_tpu_torch.train import (draw_shifts, evaluate, init_state,
+                                       item_importance_weights,
+                                       make_eval_step, train_loop,
+                                       train_step)
+    t_phase = time.perf_counter()
+    tag = "[bf16params]"
+    steps_vs_cpu(ds, params_config("bfloat16", "float32", width=False),
+                 tag, (dev, "cpu"), shifts=[[17], [101], [3]])
+
+    graph = device_graph(ds.graph, dev)
+    neg_iw = torch.from_numpy(
+        item_importance_weights(ds.train, ds.num_items)).to(dev)
+    batches = _device_batches(ds, WARMUP_STEPS + TIMED_STEPS + 6, BATCH,
+                              dev)
+    shift_gen = torch.Generator().manual_seed(SEED + 9)
+    shifts = [draw_shifts(shift_gen, 1, BATCH)
+              for _ in range(WARMUP_STEPS + TIMED_STEPS)]
+    states, out = {}, {}
+    for pdt in ("float32", "bfloat16"):
+        cfg = params_config(pdt)
+        sd = init_params(cfg, ds.num_users, ds.num_items,
+                         torch.Generator().manual_seed(SEED))
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        states[pdt] = init_state(cfg, ds.num_users, ds.num_items, sd,
+                                 device=dev)
+        torch.cuda.synchronize()
+        out[pdt] = dict(init_bytes=torch.cuda.memory_allocated() - before,
+                        table_state_bytes=_table_state_bytes(states[pdt]))
+    dtypes = {k: p.dtype for k, p in states["bfloat16"].model.
+              named_parameters() if p.dtype != torch.float32}
+    if set(dtypes) != {"tables.user_table", "tables.item_table"}:
+        raise AssertionError(f"{tag} non-f32 leaves {dtypes}")
+    a, b = out["float32"], out["bfloat16"]
+    log(f"{tag} init_state on the card: f32 parameters {a['init_bytes']} B "
+        f"({a['table_state_bytes']} B of tables and their Adam moments), "
+        f"bf16 parameters {b['init_bytes']} B ({b['table_state_bytes']} B)")
+
+    losses = {pdt: [] for pdt in states}
+    for pdt, st in states.items():
+        for j in range(WARMUP_STEPS):
+            before = _tables(st)
+            st, m = train_step(st, graph, batches[j], shifts[j], neg_iw)
+            losses[pdt].append(m["loss"].item())
+            after = dict(st.model.named_parameters())
+            changed = any(not torch.equal(v, after[k])
+                          for k, v in before.items())
+            if changed != (j % 2 == 0):
+                raise AssertionError(f"{tag} {pdt} step {j}: tables "
+                                     f"changed={changed}")
+    timed = {pdt: [] for pdt in states}
+    pos = dict.fromkeys(states, WARMUP_STEPS)
+    launches, updates = None, 0
+    for pdt in PARAMS_ORDER:
+        lo = pos[pdt]
+        chunk = slice(lo, lo + PARAMS_TURN)
+        fns = reset_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        states[pdt], m = train_loop(states[pdt], graph, batches[chunk],
+                                    shifts[chunk], neg_iw)
+        end.record()
+        torch.cuda.synchronize()
+        timed[pdt].append(start.elapsed_time(end) / PARAMS_TURN)
+        losses[pdt] += m["loss"].tolist()
+        pos[pdt] += PARAMS_TURN
+        if pdt == "bfloat16":
+            counts = {k: fn.launches for k, fn in fns.items()}
+            counts["scatter_add_rows bf16"] = scatter_add_rows.launches_bf16
+            launches = (counts if launches is None else
+                        {k: v + counts[k] for k, v in launches.items()})
+            updates += sum(1 for j in range(lo, lo + PARAMS_TURN)
+                           if j % 2 == 0)
+    log(f"{tag} launches in the {TIMED_STEPS} counted bf16-parameter "
+        f"steps: {launches}")
+    bf16_scatters = launches.pop("scatter_add_rows bf16")
+    check_launches(tag, launches, TRAIN_KERNELS["sum"])
+    if not launches["scatter_add_rows"] == bf16_scatters == 2 * updates:
+        raise AssertionError(f"{tag} {launches['scatter_add_rows']} "
+                             f"scatter-adds, {bf16_scatters} bf16 ones, in "
+                             f"{updates} table-update steps; expected 2 "
+                             f"bf16 ones a step")
+    for pdt, curve in losses.items():
+        if not (np.isfinite(curve).all()
+                and np.mean(curve[-10:]) < curve[0]):
+            raise AssertionError(f"{tag} {pdt} parameters: the loss did not "
+                                 f"fall: {curve}")
+        log(f"{tag} {pdt} parameters, loss curve ({len(curve)} steps): "
+            f"{[round(x, 5) for x in curve]}")
+    for pdt, st in states.items():
+        val = evaluate(make_eval_step(st.model), graph, ds.val,
+                       max_targets=EVAL_TARGETS)
+        step_ms = statistics.mean(timed[pdt])
+        prof = _profile(st, graph, batches[-6:], neg_iw, card, step_ms,
+                        f"{tag} {pdt}")
+        out[pdt].update(step_ms=step_ms, rounds=timed[pdt],
+                        val_auc=val["auc"], **prof)
+    out["bfloat16"]["launches_bf16"] = bf16_scatters
+    a, b = out["float32"], out["bfloat16"]
+    log(f"{tag} f32 / bf16 parameters, B={BATCH}, {TIMED_STEPS} steps each "
+        f"in turns of {PARAMS_TURN}: step {a['step_ms']:.3f} / "
+        f"{b['step_ms']:.3f} ms (CUDA events), kernels a step "
+        f"{a['kernels']:.1f} / {b['kernels']:.1f}, device ms "
+        f"{a['device_ms']:.3f} / {b['device_ms']:.3f}, idle share "
+        f"{a['idle']:.3f} / {b['idle']:.3f}, bf16 scatter-adds {bf16_scatters}"
+        f", tables and moments {a['table_state_bytes']} / "
+        f"{b['table_state_bytes']} B, val auc ({EVAL_TARGETS} targets) "
+        f"{a['val_auc']:.4f} / {b['val_auc']:.4f} [{card}]")
+
+    # `latest` of the bf16 state, restored into a state from other weights
+    live = states["bfloat16"]
+    with tempfile.TemporaryDirectory() as ck:
+        mgr = CheckpointManager(ck)
+        mgr.save("latest", live, (0, 0), 0.0, live.step, block=True)
+        cfg = params_config("bfloat16")
+        fresh = init_state(cfg, ds.num_users, ds.num_items, init_params(
+            cfg, ds.num_users, ds.num_items,
+            torch.Generator().manual_seed(SEED + 1)), device=dev)
+        apply_restore(fresh, mgr.restore("latest", fresh))
+        size = os.path.getsize(mgr.path("latest"))
+    a, b = _state_tensors(live), _state_tensors(fresh)
+    bad = [k for k in a if a[k].dtype != b[k].dtype or not torch.equal(
+        a[k], b[k])]
+    if bad or set(a) != set(b) or fresh.step != live.step:
+        raise AssertionError(f"{tag} `latest` restored differs: {bad}")
+    log(f"{tag} `latest` ({size} B) restored bit-equal: every parameter "
+        f"and moment ({sum(v.dtype == torch.bfloat16 for v in a.values())}"
+        f" of them bf16), step {live.step}")
+    del fresh, a, b
+
+    # serving the trained weights: card against CPU, then timed in turns
+    rng = np.random.default_rng(SEED + 10)
+    sd = {k: v.detach().cpu() for k, v in live.model.state_dict().items()}
+    serve_vs_cpu(ds, lambda dtype: params_config("bfloat16", dtype), sd, rng,
+                 tag, device=dev)
+    svcs = {pdt: ScoringService(params_config(pdt), ds,
+                                states[pdt].model.state_dict(), device=dev)
+            for pdt in states}
+    user = int(ds.test.user[0])
+    items = rng.integers(1, ds.num_items + 1, 101).astype(np.int32)
+    users16 = np.unique(ds.test.user)[:ROWS].astype(np.int32)
+    wide = rng.integers(1, ds.num_items + 1, (ROWS, WIDE)).astype(np.int32)
+    for svc in svcs.values():
+        for _ in range(5):
+            svc.score(user, items)
+        scores = svc.score_batch(users16, wide)
+        if scores.shape != (ROWS, WIDE) or not np.isfinite(scores).all():
+            raise AssertionError(f"{tag} score_batch {scores.shape}")
+    lat = {pdt: [] for pdt in svcs}
+    batch_ms = {pdt: [] for pdt in svcs}
+    for pdt in ("float32", "bfloat16", "bfloat16", "float32"):
+        svc = svcs[pdt]
+        for _ in range(PARAMS_SERVE_CALLS):
+            t0 = time.perf_counter()
+            svc.score(user, items)
+            lat[pdt].append((time.perf_counter() - t0) * 1e3)
+        for _ in range(PARAMS_BATCH_CALLS):
+            t0 = time.perf_counter()
+            svc.score_batch(users16, wide)
+            batch_ms[pdt].append((time.perf_counter() - t0) * 1e3)
+    for pdt in svcs:
+        out[pdt].update(score_p50_ms=statistics.median(lat[pdt]),
+                        score_batch_ms=statistics.median(batch_ms[pdt]))
+    a, b = out["float32"], out["bfloat16"]
+    log(f"{tag} serving in turns (f32, bf16, bf16, f32 parameters): score "
+        f"1 x 101 p50 {a['score_p50_ms']:.3f} / {b['score_p50_ms']:.3f} ms "
+        f"({PARAMS_SERVE_CALLS} calls a turn), score_batch {ROWS} x {WIDE} "
+        f"median {a['score_batch_ms']:.3f} / {b['score_batch_ms']:.3f} ms "
+        f"[{card}]")
+    del svcs, states, live, graph, batches
+    torch.cuda.empty_cache()
+    log(f"{tag} {json.dumps(out)}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return out
+
+
 # --- phase 10: [shard] -----------------------------------------------------
 
 SHARD_CHECK_STEPS, SHARD_TIMED_STEPS, SHARD_ROUND = 3, 20, 5
@@ -2562,13 +2930,15 @@ def phase_shard(card: str, ds, dev) -> dict:
     `sharding.bringup`; the a2a and psum lookups at the training shape
     against the local gather; configs3 (sum pool, in-batch IW, B=4096,
     stride 2 at 2x) trained under the mesh with a2a lookups against the
-    local step, then timed in turns with it and profiled; an a2a step at
+    local step, then timed in turns with it and profiled; with bf16
+    parameters, 3 a2a steps each from the local state; an a2a step at
     a capacity below the unique ids, its overflow against the host's
     count; then configs4(1, 1)'s driver, checkpoints, serving and the
     entry point's dry run (`_shard_driver`)."""
     import torch.distributed as dist
     from score_tpu_torch.config import ShardingConfig
     from score_tpu_torch.graph import device_graph, gather_candidate_batch
+    from score_tpu_torch.kernels.gather import scatter_add_rows
     from score_tpu_torch.params import init_params
     from score_tpu_torch.sharding import bringup, full_tables
     from score_tpu_torch.train import (draw_shifts, init_state,
@@ -2596,8 +2966,8 @@ def phase_shard(card: str, ds, dev) -> dict:
             shifts = [draw_shifts(shift_gen, 1, BATCH)
                       for _ in range(len(batches))]
 
-            def states(dtype, capacity=0):
-                cfg = bench_config(dtype)
+            def states(dtype, capacity=0, param_dtype="float32"):
+                cfg = params_config(param_dtype, dtype)
                 sd = init_params(cfg, ds.num_users, ds.num_items,
                                  torch.Generator().manual_seed(SEED))
                 a2a = cfg.replace(sharding=ShardingConfig(
@@ -2709,6 +3079,54 @@ def phase_shard(card: str, ds, dev) -> dict:
             del sharded, plain
             torch.cuda.empty_cache()
 
+            # bf16 parameters (f32 compute), as the CPU test holds a
+            # sharded bf16-parameter step to the unsharded one: 3 local
+            # steps, and before each an a2a state under the mesh built
+            # from the local state, which takes the same step (loss and
+            # dense weights within the f32 tolerances, tables within 2 lr
+            # x boost and 2% of entries past 1 ulp)
+            _, plain = states("float32", param_dtype="bfloat16")
+            a2a_cfg = plain.cfg.replace(sharding=ShardingConfig(
+                lookup_mode="a2a"))
+            bf16_scatters, worst = 0, {}
+            for j in range(SHARD_CHECK_STEPS):
+                sharded = init_state(
+                    a2a_cfg, ds.num_users, ds.num_items,
+                    {k: v.detach().clone() for k, v in
+                     plain.model.state_dict().items()}, device=dev,
+                    opt_state=plain.opt.state(), mesh=mesh)
+                reset_counts()
+                sharded, ms = train_step(sharded, graph, batches[j],
+                                         shifts[j], neg_iw)
+                bf16_scatters += scatter_add_rows.launches_bf16
+                plain, mp = train_step(plain, graph, batches[j], shifts[j],
+                                       neg_iw)
+                got = full_tables(mesh, sharded)
+                if got["tables.item_table"].dtype != torch.bfloat16:
+                    raise AssertionError("[shard] the tables are not bf16")
+                np.testing.assert_allclose(ms["loss"].item(),
+                                           mp["loss"].item(), **LOSS_TOL)
+                bf16_params_close(
+                    f"[shard] step {j}", a2a_cfg, ([ms["loss"].item()], got),
+                    ([mp["loss"].item()], {k: v.detach() for k, v in
+                                           plain.model.named_parameters()}),
+                    1, dense_tol=dict(rtol=1e-4, atol=1e-6), start=j)
+                del sharded, got
+            # at least the owners' scatter into each table block on each
+            # of the 2 table-update steps (each lookup's pre-reduction is
+            # one more)
+            if bf16_scatters < 2 * 2:
+                raise AssertionError(f"[shard] {bf16_scatters} bf16 "
+                                     f"scatter-adds in the a2a steps")
+            log(f"[shard] bf16 parameters, f32 compute: {SHARD_CHECK_STEPS}"
+                f" a2a steps under the mesh, each from the local state, "
+                f"against the local steps: losses within {LOSS_TOL}, dense "
+                f"weights within rtol 1e-4 atol 1e-6; {bf16_scatters} bf16 "
+                f"scatter-adds in the a2a steps")
+            out["bf16_params_scatters"] = bf16_scatters
+            del plain
+            torch.cuda.empty_cache()
+
             # overflow below the per-rank unique ids, against the host
             sharded, _ = states("bfloat16", SHARD_CAPACITY)
             b = batches[0]
@@ -2783,6 +3201,8 @@ def main() -> int:
     mark("[roster]")
     phase_trainer(card, ds, dev)
     mark("[trainer]")
+    bf16params = phase_bf16params(card, ds, dev)
+    mark("[bf16params]")
     phase_shard(card, ds, dev)
     mark("[shard]")
     kernels = [
@@ -2794,7 +3214,9 @@ def main() -> int:
              source="score_tpu_torch/csrc/scatter_add.cu",
              replaces="score_tpu/kernels/gather.py:67 (its transpose, "
                       "XLA's scatter-add)",
-             launches=launches["scatter_add_rows"], **scatter),
+             launches=launches["scatter_add_rows"],
+             bf16_launches=bf16params["bfloat16"]["launches_bf16"],
+             **scatter),
         dict(name="cross_coattn_cand", route="cuda",
              source="score_tpu_torch/csrc/coattn_cand.cu",
              replaces="score_tpu/kernels/coattn_cand.py:275",

@@ -3,13 +3,15 @@
 Counterpart of score_tpu/checkpoint.py. Each checkpoint holds what the
 reference's orbax checkpoint holds:
 
-    {params: the f32 master state_dict,
+    {params: the state_dict (f32, the tables in param_dtype),
      opt_state: {name, count, and the optimizer's state dicts}
                 (adam and adamw: mu, nu; adagrad: sum_of_squares; sgd:
                 none; one count shared by all leaves),
      step, it_epoch, it_pos, best_val}
 
-A file with no optimizer name (`{count, mu, nu}`, as the port wrote
+Every tensor keeps its dtype: bf16 tables and their bf16 moments are
+saved, restored and memory-mapped bit for bit. A file with no optimizer
+name (`{count, mu, nu}`, as the port wrote
 before it had other optimizers) restores as Adam.
 
 Without a mesh it is written by `torch.save` to `<directory>/<name>.pt`.

@@ -7,9 +7,11 @@ hand-written kernel in `score_tpu_torch/csrc/gather.cu` and, when the table
 needs a gradient, its backward launches `scatter_add_rows`
 (`score_tpu_torch/csrc/scatter_add.cu`); `gather_rows_grouped` takes all of
 a step's lookups into one table, so that their backward is one
-scatter-add. Each source note says what bounds it on the H100 and how the
-design meets that. On CPU tensors both run their
-plain versions. There is no fallback from one to the other.
+scatter-add. A table that trains is f32 or bf16; a bf16 table's gradient is
+bf16, summed in f32 and rounded once (the scatter-add's bf16 form). Each
+source note says what bounds it on the H100 and how the design meets that.
+On CPU tensors both run their plain versions. There is no fallback from
+one to the other.
 """
 
 from __future__ import annotations
@@ -27,10 +29,16 @@ _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p)
 # segments a scatter-add takes: (src, ids, n) each, by value
 _MAX_SEGMENTS = 4
-_SCATTER_ARGTYPES = ((ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong)
-                     * _MAX_SEGMENTS
-                     + (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                        ctypes.c_void_p))
+_SEGMENT_ARGTYPES = ((ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong)
+                     * _MAX_SEGMENTS)
+_SCATTER_ARGTYPES = _SEGMENT_ARGTYPES + (
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p)
+# the bf16 form: the f32 workspace, then the bf16 table
+_SCATTER_BF16_ARGTYPES = _SEGMENT_ARGTYPES + (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+    ctypes.c_void_p)
+# the sources (and tables) a scatter-add takes
+_SCATTER_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def gather_rows_plain(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -52,16 +60,17 @@ def _segments(ids, src) -> Tuple[list, list]:
 
 
 def scatter_add_rows_plain(ids, src, num_rows: int) -> torch.Tensor:
-    """ids [...] int32, src [..., W] f32, or equal-length sequences of such
-    segments -> [num_rows, W] f32 table with table[ids[j]] += src[j] from
-    zeros, the segments added in order."""
+    """ids [...] int32, src [..., W] f32 or bf16, or equal-length
+    sequences of such segments -> [num_rows, W] table of src's dtype with
+    table[ids[j]] += src[j] from zeros, the segments added in order; bf16
+    sources are summed in f32 and the sums rounded once to bf16."""
     ids, src = _segments(ids, src)
-    W = src[0].shape[-1]
-    table = torch.zeros(num_rows, W, dtype=src[0].dtype,
-                        device=src[0].device)
+    W, dtype = src[0].shape[-1], src[0].dtype
+    acc = torch.float32 if dtype == torch.bfloat16 else dtype
+    table = torch.zeros(num_rows, W, dtype=acc, device=src[0].device)
     for i, x in zip(ids, src):
-        table.index_add_(0, i.reshape(-1), x.reshape(-1, W))
-    return table
+        table.index_add_(0, i.reshape(-1), x.reshape(-1, W).to(table.dtype))
+    return table.to(dtype)
 
 
 def _device_index(name: str, x: torch.Tensor, ids: torch.Tensor) -> int:
@@ -101,25 +110,28 @@ def _gather_launch(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 
 def scatter_add_rows(ids, src, num_rows: int) -> torch.Tensor:
-    """ids [...] int32, src [..., W] f32, or equal-length sequences of up
-    to _MAX_SEGMENTS such segments (one W) -> [num_rows, W] f32 with
-    table[ids[j]] += src[j] from zeros: on CUDA tensors the kernel, one
-    launch for all the segments, its table zeroed on the same stream; on
-    the CPU the plain version. Out-of-range ids are the caller's bug."""
+    """ids [...] int32, src [..., W] f32 or bf16, or equal-length
+    sequences of up to _MAX_SEGMENTS such segments (one W, one dtype) ->
+    [num_rows, W] of src's dtype with table[ids[j]] += src[j] from zeros:
+    on CUDA tensors the kernel, one call for all the segments, its table
+    zeroed on the same stream (bf16: summed in an f32 workspace, then
+    rounded once into the bf16 table); on the CPU the plain version.
+    Out-of-range ids are the caller's bug."""
     ids, src = _segments(ids, src)
     if src[0].is_cpu:
         return scatter_add_rows_plain(ids, src, num_rows)
     if len(ids) > _MAX_SEGMENTS:
         raise ValueError(f"scatter_add_rows: {len(ids)} segments; the "
                          f"kernel takes at most {_MAX_SEGMENTS}")
-    W = src[0].shape[-1]
+    W, dtype = src[0].shape[-1], src[0].dtype
     index = _device_index("scatter_add_rows", src[0], ids[0])
     live = []
     for i, x in zip(ids, src):
         if (_device_index("scatter_add_rows", x, i) != index
-                or x.dtype != torch.float32):
+                or x.dtype != dtype or dtype not in _SCATTER_DTYPES):
             raise ValueError(f"scatter_add_rows: sources must be float32 "
-                             f"on one device, got {x.dtype} on {x.device}")
+                             f"or bfloat16, one dtype on one device; got "
+                             f"{x.dtype} on {x.device} after {dtype}")
         if tuple(x.shape) != (*i.shape, W):
             raise ValueError(f"scatter_add_rows: src {tuple(x.shape)} does "
                              f"not match ids {tuple(i.shape)} and W={W}")
@@ -132,10 +144,19 @@ def scatter_add_rows(ids, src, num_rows: int) -> torch.Tensor:
     for x, i in live:
         args += [x.data_ptr(), i.data_ptr(), i.numel()]
     args += [None, None, 0] * (_MAX_SEGMENTS - len(live))
-    _build.launch("scatter_add",
-                  _build.load("scatter_add", "scatter_add_segments",
-                              _SCATTER_ARGTYPES),
-                  index, *args, table.data_ptr(), num_rows, W)
+    if dtype == torch.float32:
+        _build.launch("scatter_add",
+                      _build.load("scatter_add", "scatter_add_segments",
+                                  _SCATTER_ARGTYPES),
+                      index, *args, table.data_ptr(), num_rows, W)
+    else:
+        workspace = table.new_empty((num_rows, W), dtype=torch.float32)
+        _build.launch("scatter_add",
+                      _build.load("scatter_add", "scatter_add_segments_bf16",
+                                  _SCATTER_BF16_ARGTYPES),
+                      index, *args, workspace.data_ptr(), table.data_ptr(),
+                      num_rows, W)
+        scatter_add_rows.launches_bf16 += 1
     scatter_add_rows.launches += 1
     return table
 
@@ -167,13 +188,13 @@ class _GatherRows(torch.autograd.Function):
 
 def _trainable(table: torch.Tensor) -> bool:
     """Whether lookups into `table` need its gradient; such a table must be
-    f32 (training gathers from the f32 master tables and casts after the
-    gather)."""
+    f32 or bf16, a dtype the scatter-add takes (training gathers from the
+    tables in their parameter dtype and casts after the gather)."""
     if not (table.requires_grad and torch.is_grad_enabled()):
         return False
-    if table.dtype != torch.float32:
+    if table.dtype not in _SCATTER_DTYPES:
         raise ValueError(f"gather_rows: a table that requires a gradient "
-                         f"must be float32, got {table.dtype}")
+                         f"must be float32 or bfloat16, got {table.dtype}")
     return True
 
 
@@ -181,8 +202,9 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """table [V, W] (f32, bf16 or int32, contiguous), ids [...] int32 ->
     [..., W], out[...] = table[ids[...]].
 
-    Differentiable in the table when it requires a gradient: the gradient
-    is the f32 scatter-add of the output's gradient. Out-of-range ids are
+    Differentiable in the table when it requires a gradient (f32 or bf16):
+    the gradient is the scatter-add of the output's gradient, in the
+    table's dtype. Out-of-range ids are
     the caller's bug (no clamping); row 0 is a row like any other."""
     if not _trainable(table):
         return _gather_launch(table, ids)
@@ -204,3 +226,5 @@ def gather_rows_grouped(table: torch.Tensor,
 
 gather_rows.launches = 0
 scatter_add_rows.launches = 0
+# of those, the bf16 form's
+scatter_add_rows.launches_bf16 = 0

@@ -4,8 +4,10 @@ Counterpart of score_tpu/nn/embed.py. Row 0 of every table is the padding
 row; padding is handled by masks where the rows are used, never by zeroing
 the row. Row counts are rounded up to a multiple of 64 (the pad rows are
 never addressed by valid ids), so row-sharding over any rows axis that
-divides 64 needs no repadding. Lookups go through the gather kernel, whose
-backward (the scatter-add kernel) gives the f32 tables their gradients;
+divides 64 needs no repadding. The tables are f32 or, as the reference's
+`param_dtype` makes them, bf16. Lookups go through the gather kernel,
+whose backward (the scatter-add kernel) gives the tables their gradients
+in their own dtype;
 `lookup` groups all of a step's lookups into each table, so each table's
 gradient is one scatter-add. With a `lookup_fn` (`sharding.make_lookup_fn`)
 the tables are row blocks and each lookup is its own exchange over the
@@ -33,12 +35,13 @@ class EmbeddingTables(nn.Module):
     """User/item tables; `shared=True` packs both into one table.
 
     Shared layout: index 0 = pad, 1..num_items = items, num_items+1.. =
-    users. Parameters start empty; `score_tpu_torch.params` fills them.
-    `overflow` sums the a2a lookups' overflow counts since it was last
-    reset to None, as the reference sows them."""
+    users. Parameters start empty, of `dtype`; `score_tpu_torch.params`
+    fills them. `overflow` sums the a2a lookups' overflow counts since it
+    was last reset to None, as the reference sows them."""
 
     def __init__(self, num_users: int, num_items: int, dim: int,
-                 shared: bool = False, lookup_fn=None):
+                 shared: bool = False, lookup_fn=None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_items = num_items
         self.shared = shared
@@ -46,12 +49,12 @@ class EmbeddingTables(nn.Module):
         self.overflow: Optional[torch.Tensor] = None
         if shared:
             rows = round_up(1 + num_items + num_users)
-            self.table = nn.Parameter(torch.empty(rows, dim))
+            self.table = nn.Parameter(torch.empty(rows, dim, dtype=dtype))
         else:
             self.user_table = nn.Parameter(
-                torch.empty(round_up(1 + num_users), dim))
+                torch.empty(round_up(1 + num_users), dim, dtype=dtype))
             self.item_table = nn.Parameter(
-                torch.empty(round_up(1 + num_items), dim))
+                torch.empty(round_up(1 + num_items), dim, dtype=dtype))
 
     def user_emb(self, ids: torch.Tensor) -> torch.Tensor:
         return self.lookup([ids], [])[0][0]

@@ -37,32 +37,33 @@ from .embed import EmbeddingTables
 from .encoder import GRU, AttnPool, last_pool
 from .scorer import Scorer
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 ARCHS = ("score", "mf", "pop", "svdpp", "delf")
 ENCODERS = ("gru", "caser", "selfattn")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for what the port does not build: an
-    arch or sequence encoder the reference does not have, compute other
-    than f32 or bf16, and parameters other than f32; ValueError for
-    co-attention on one side, which the reference refuses too."""
+    arch or sequence encoder the reference does not have, and compute or
+    parameters other than f32 or bf16; ValueError for co-attention on one
+    side, which the reference refuses too."""
     if cfg.arch not in ARCHS or cfg.seq_encoder not in ENCODERS:
         raise NotImplementedError(
             f"no arch {cfg.arch!r} with encoder {cfg.seq_encoder!r}; the "
             f"port builds the archs {ARCHS} and the encoders {ENCODERS}")
-    if cfg.compute_dtype not in _DTYPES:
+    if cfg.compute_dtype not in DTYPES:
         raise NotImplementedError(
             f"score_tpu_torch computes in f32 or bf16 only; got "
             f"compute_dtype={cfg.compute_dtype!r}")
     if (cfg.arch == "score" and cfg.slot_agg == "coattn"
             and cfg.sides != "dual"):
         raise ValueError("co-attention requires both sides (sides='dual')")
-    # the master weights are f32: the table-gradient scatter-add takes f32
-    if cfg.param_dtype != "float32":
+    # param_dtype sets ScoreModel's tables (the scatter-add takes f32 and
+    # bf16); every other leaf is f32, as in the reference
+    if cfg.param_dtype not in DTYPES:
         raise NotImplementedError(
-            f"score_tpu_torch keeps float32 parameters only; got "
-            f"param_dtype={cfg.param_dtype!r}")
+            f"score_tpu_torch keeps float32 or bfloat16 parameters only; "
+            f"got param_dtype={cfg.param_dtype!r}")
 
 
 def check_config(cfg: Config, mesh=None) -> None:
@@ -143,9 +144,10 @@ def candidates_form(batch: dict, dual: bool) -> dict:
 def build_model(cfg, num_users: int, num_items: int,
                 lookup_fn=None) -> nn.Module:
     """The model `cfg.arch` names (cfg a Config or its ModelConfig):
-    ScoreModel for 'score', else the baseline arch of `nn.baselines`;
-    every table's lookups through `lookup_fn` (`sharding.make_lookup_fn`;
-    None: the local gather)."""
+    ScoreModel for 'score', its tables of param_dtype, else the baseline
+    arch of `nn.baselines`, whose tables are f32 whatever param_dtype
+    says, as the reference's are; every table's lookups through
+    `lookup_fn` (`sharding.make_lookup_fn`; None: the local gather)."""
     m = getattr(cfg, "model", cfg)
     check_supported(m)
     if m.arch == "score":
@@ -176,12 +178,13 @@ class ScoreModel(nn.Module):
         check_supported(cfg)
         self.cfg = cfg
         self.num_users, self.num_items = num_users, num_items
-        self.compute_dtype = _DTYPES[cfg.compute_dtype]
+        self.compute_dtype = DTYPES[cfg.compute_dtype]
         self.dual = cfg.sides == "dual"
         d, f = cfg.embed_dim, cfg.hidden_dim
         self.tables = EmbeddingTables(num_users, num_items, d,
                                       shared=cfg.shared_table,
-                                      lookup_fn=lookup_fn)
+                                      lookup_fn=lookup_fn,
+                                      dtype=DTYPES[cfg.param_dtype])
         if cfg.slot_agg == "coattn":
             self.coattn = CrossCoAttention(d, pool=cfg.coattn_pool,
                                            target_aware=cfg.target_aware)
@@ -211,8 +214,9 @@ class ScoreModel(nn.Module):
         `graph.gather_candidate_batch`; with sides='user' the item side's
         i_hist and i_cnt are not read) -> logits [B, C] in f32.
 
-        Lookups gather from the f32 tables and cast after the gather, so
-        the tables' gradients arrive in f32. `neg_shift` (k in-batch
+        Lookups gather from the tables (f32, or bf16 with param_dtype
+        bf16) and cast after the gather, so the tables' gradients arrive
+        in the tables' dtype. `neg_shift` (k in-batch
         shifts, C == 1 only): candidate c >= 1 of example b is example
         (b + neg_shift[c-1]) mod B's positive, its item side a batch roll
         of the embedded tensors -> logits [B, 1 + k]. In training mode

@@ -16,12 +16,21 @@ increment (ScaleByAdamState), a schedule the count before it
 (ScaleByScheduleState starts at 0), so the first step of a warmup moves
 nothing. Schedules are evaluated on the host in f32, as optax evaluates
 them, and the step's learning rate is one f32 scalar: no device sync.
+
+Every state leaf has its parameter's dtype, as optax's has. A step
+updates the parameters a dtype at a time, and against bf16 parameters
+(bf16 tables) it does optax's arithmetic in bf16: each constant meets the
+tensor rounded to bf16 (JAX's weak-typed constants take the tensor's
+dtype, and optax casts its f32 bias corrections and schedule values to
+it), and each op rounds its result to bf16, in optax's order. Against f32
+parameters the constants are the Python floats themselves, which torch
+takes into f32 arithmetic.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Mapping, Optional, Sequence
+from typing import Callable, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -29,6 +38,17 @@ import torch
 from .config import Config
 
 _F32 = np.float32
+
+
+def constant(value: float, dtype: torch.dtype) -> float:
+    """`value` as it meets a tensor of `dtype` in optax's arithmetic: as it
+    is against f32, rounded (through f32, as JAX converts it) to the
+    nearest bf16 against bf16. A bf16 value times or plus a bf16 tensor is
+    then exact in torch's f32 arithmetic before the one rounding of the
+    result, as in XLA's."""
+    if dtype == torch.float32:
+        return value
+    return torch.tensor(value, dtype=torch.float32).to(dtype).item()
 
 
 def is_table(name: str) -> bool:
@@ -139,8 +159,10 @@ class Optimizer:
             for k, p in self.params.items():
                 mine[k] = state[key][k].to(p.device, p.dtype).clone()
 
-    def direction(self, names: Sequence[str],
-                  grads: Sequence[torch.Tensor]) -> Sequence[torch.Tensor]:
+    def direction(self, names: Sequence[str], grads: Sequence[torch.Tensor],
+                  dtype: torch.dtype) -> Sequence[torch.Tensor]:
+        """The update before the learning rate of the parameters `names`,
+        all of `dtype`, whose constants are `constant(c, dtype)`."""
         raise NotImplementedError
 
     @torch.no_grad()
@@ -152,16 +174,22 @@ class Optimizer:
         update. The others and their state stay as they are."""
         lr = self.learning_rate()
         self.count += 1
-        if not names:
-            return
-        grads = [torch.zeros_like(self.params[k]) if g is None else g
-                 for k, g in zip(names, grads)]
-        upd = torch._foreach_mul(self.direction(names, grads), -lr)
-        if self.boost != 1.0:
-            tables = [u for k, u in zip(names, upd) if is_table(k)]
-            if tables:
-                torch._foreach_mul_(tables, self.boost)
-        torch._foreach_add_([self.params[k] for k in names], upd)
+        groups: Dict[torch.dtype, List[tuple]] = {}
+        for k, g in zip(names, grads):
+            p = self.params[k]
+            groups.setdefault(p.dtype, []).append(
+                (k, torch.zeros_like(p) if g is None else g))
+        for dtype, group in groups.items():
+            names_d = [k for k, _ in group]
+            upd = torch._foreach_mul(
+                self.direction(names_d, [g for _, g in group], dtype),
+                constant(-lr, dtype))
+            if self.boost != 1.0:
+                tables = [u for k, u in zip(names_d, upd) if is_table(k)]
+                if tables:
+                    torch._foreach_mul_(tables,
+                                        constant(self.boost, dtype))
+            torch._foreach_add_([self.params[k] for k in names_d], upd)
 
 
 class Adam(Optimizer):
@@ -186,21 +214,23 @@ class Adam(Optimizer):
         return float(1 - torch.tensor(decay, dtype=f32)
                      ** torch.tensor(float(self.count), dtype=f32))
 
-    def direction(self, names, grads):
+    def direction(self, names, grads, dtype):
+        def c(value):
+            return constant(value, dtype)
         bc1 = self._bias_correction(self.b1)
         bc2 = self._bias_correction(self.b2)
         mus = [self.mu[k] for k in names]
         nus = [self.nu[k] for k in names]
-        torch._foreach_mul_(mus, self.b1)
-        torch._foreach_add_(mus, torch._foreach_mul(grads, 1.0 - self.b1))
+        torch._foreach_mul_(mus, c(self.b1))
+        torch._foreach_add_(mus, torch._foreach_mul(grads, c(1.0 - self.b1)))
         g2 = torch._foreach_mul(grads, grads)
-        torch._foreach_mul_(g2, 1.0 - self.b2)
-        torch._foreach_mul_(nus, self.b2)
+        torch._foreach_mul_(g2, c(1.0 - self.b2))
+        torch._foreach_mul_(nus, c(self.b2))
         torch._foreach_add_(nus, g2)
-        upd = torch._foreach_div(mus, bc1)
-        den = torch._foreach_div(nus, bc2)
+        upd = torch._foreach_div(mus, c(bc1))
+        den = torch._foreach_div(nus, c(bc2))
         torch._foreach_sqrt_(den)
-        torch._foreach_add_(den, self.eps)
+        torch._foreach_add_(den, c(self.eps))
         torch._foreach_div_(upd, den)
         return upd
 
@@ -209,7 +239,8 @@ class AdamW(Adam):
     """optax.adamw: Adam's direction plus weight_decay * p (decoupled: it
     is not in the moments), then the learning rate and the table boost,
     which therefore scale the decay too. Every parameter a step updates
-    decays, also one with a zero gradient."""
+    decays, also one with a zero gradient. In bf16 the decay term rounds
+    before it is added, as optax's does; in f32 it is one fused op."""
 
     name = "adamw"
 
@@ -218,10 +249,14 @@ class AdamW(Adam):
         super().__init__(params, lr, table_lr_boost, schedule, **adam_kw)
         self.weight_decay = float(weight_decay)
 
-    def direction(self, names, grads):
-        upd = super().direction(names, grads)
-        torch._foreach_add_(upd, [self.params[k] for k in names],
-                            alpha=self.weight_decay)
+    def direction(self, names, grads, dtype):
+        upd = super().direction(names, grads, dtype)
+        params = [self.params[k] for k in names]
+        if dtype == torch.float32:
+            torch._foreach_add_(upd, params, alpha=self.weight_decay)
+        else:
+            torch._foreach_add_(upd, torch._foreach_mul(
+                params, constant(self.weight_decay, dtype)))
         return upd
 
 
@@ -241,10 +276,10 @@ class Adagrad(Optimizer):
             k: torch.full_like(p, initial_accumulator_value)
             for k, p in self.params.items()}
 
-    def direction(self, names, grads):
+    def direction(self, names, grads, dtype):
         sos = [self.sum_of_squares[k] for k in names]
         torch._foreach_add_(sos, torch._foreach_mul(grads, grads))
-        inv = torch._foreach_add(sos, self.eps)
+        inv = torch._foreach_add(sos, constant(self.eps, dtype))
         torch._foreach_rsqrt_(inv)
         torch._foreach_mul_(inv, grads)
         return inv
@@ -255,7 +290,7 @@ class SGD(Optimizer):
 
     name = "sgd"
 
-    def direction(self, names, grads):
+    def direction(self, names, grads, dtype):
         return grads
 
 

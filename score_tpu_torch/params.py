@@ -12,6 +12,11 @@ leaves become torch `weight` leaves:
 Every other leaf (tables, Wr/Wtu/Wti, the slot attention's W, the GRU's
 wx/wh/b, the pooling W, biases, LayerNorm scales, MF's scalar bias) keeps
 its name and layout, whichever model's tree it is.
+
+Leaves keep their dtype, bf16 tables too, with no `ml_dtypes`: a bf16
+numpy array (what np.asarray gives of a JAX bf16 array) comes in through
+its bits, and goes out as the f32 array of the same values (see
+`to_flax`).
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import torch
 from .config import Config
 from .nn.baselines import CASER_WIDTHS, SELFATTN_HEADS
 from .nn.embed import round_up
-from .nn.model import check_supported, scorer_width
+from .nn.model import DTYPES, check_supported, scorer_width
 
 # a 3-D kernel's axes, flax -> torch, by its module's name
 _QKV_TO_TORCH = (1, 2, 0)      # [in, h, hd] -> [h, hd, in]
@@ -48,8 +53,21 @@ def _kernel_axes(path: str, ndim: int):
     raise ValueError(f"no mapping for the {ndim}-D kernel of {path!r}")
 
 
+def _tensor(val) -> torch.Tensor:
+    """A leaf as a tensor of its own: a tensor cloned; an array (numpy, or
+    any that np.array takes) copied, a bf16 one (dtype name 'bfloat16',
+    which torch.from_numpy refuses) through a uint16 view of its bits."""
+    if isinstance(val, torch.Tensor):
+        return val.clone()
+    arr = np.array(val)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
 def from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """Nested dict of arrays (a flax `params` tree) -> state_dict."""
+    """Nested dict of arrays (a flax `params` tree) -> state_dict, each
+    leaf in its own dtype (bf16 included)."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node, prefix):
@@ -57,8 +75,7 @@ def from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
             if isinstance(val, Mapping):
                 walk(val, prefix + key + ".")
                 continue
-            arr = (val.clone() if isinstance(val, torch.Tensor)
-                   else torch.from_numpy(np.array(val)))
+            arr = _tensor(val)
             if key == "kernel":
                 out[prefix + "weight"] = arr.permute(
                     *_kernel_axes(prefix, arr.dim())).contiguous()
@@ -69,7 +86,11 @@ def from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
-    """state_dict -> nested dict of numpy arrays (a flax `params` tree)."""
+    """state_dict -> nested dict of numpy arrays (a flax `params` tree).
+    numpy has no bf16 of its own, so a bf16 leaf comes back as the f32
+    array of its values, which f32 holds exactly: `jnp.asarray(a,
+    jnp.bfloat16)` (or `a.astype(ml_dtypes.bfloat16)`) gives the bf16
+    array bit for bit. Every other leaf keeps its dtype."""
     tree: dict = {}
     for key, val in state_dict.items():
         *path, leaf = key.split(".")
@@ -80,6 +101,8 @@ def to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
         if leaf == "weight":
             axes = _kernel_axes(".".join(path), arr.dim())
             leaf, arr = "kernel", arr.permute(*np.argsort(axes))
+        if arr.dtype == torch.bfloat16:
+            arr = arr.float()
         node[leaf] = arr.contiguous().numpy()
     return tree
 
@@ -87,7 +110,8 @@ def to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
 def cast_tables(state_dict: Mapping[str, torch.Tensor],
                 compute_dtype: str) -> Dict[str, torch.Tensor]:
     """With bf16 compute, the 2-D embedding tables cast to bf16 once (the
-    other leaves as they are). The model casts each gathered row to its
+    other leaves as they are; a bf16 table, of param_dtype bf16, is left
+    as it is). The model casts each gathered row to its
     compute dtype, and rounding commutes with row selection, so the scores
     are the same; the gathers move half the bytes. Serving
     (`serve.ScoringService`) and eval (`train.make_eval_step`) both cast
@@ -216,11 +240,14 @@ def _baseline_tree(m, num_users: int, num_items: int, table,
 
 def init_params(cfg: Config, num_users: int, num_items: int,
                 generator: torch.Generator) -> Dict[str, torch.Tensor]:
-    """Fresh f32 weights of the model `cfg.model` names, drawn as flax
-    draws them: normal(0.01) tables, lecun-normal GRU, Dense, Conv and
+    """Fresh weights of the model `cfg.model` names, drawn as flax draws
+    them: normal(0.01) tables, lecun-normal GRU, Dense, Conv and
     attention kernels, zero biases, LayerNorm scales 1, and zero attention
     weights (Wr, Wtu, Wti, the slot attention's and the pooling's W). Only
-    the submodules the model has get weights, as in the flax tree."""
+    the submodules the model has get weights, as in the flax tree. Every
+    leaf is f32 but ScoreModel's tables, which are drawn in f32 and
+    rounded to param_dtype (the baseline archs' tables stay f32, as the
+    reference's do)."""
     m = cfg.model
     check_supported(m)
     d, f = m.embed_dim, m.hidden_dim
@@ -234,11 +261,12 @@ def init_params(cfg: Config, num_users: int, num_items: int,
         return {k: v.contiguous() for k, v in from_flax(
             _baseline_tree(m, num_users, num_items, table, g)).items()}
     sd: Dict[str, torch.Tensor] = {}
+    pdt = DTYPES[m.param_dtype]
     if m.shared_table:
-        sd["tables.table"] = table(1 + num_items + num_users)
+        sd["tables.table"] = table(1 + num_items + num_users).to(pdt)
     else:
-        sd["tables.user_table"] = table(1 + num_users)
-        sd["tables.item_table"] = table(1 + num_items)
+        sd["tables.user_table"] = table(1 + num_users).to(pdt)
+        sd["tables.item_table"] = table(1 + num_items).to(pdt)
     if m.slot_agg == "coattn":
         for name in ["wr"] + (["wtu", "wti"] if m.target_aware else []):
             sd[f"coattn.{name}"] = torch.zeros(d, d)

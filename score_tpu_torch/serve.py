@@ -59,11 +59,13 @@ class ScoringService:
                  state_dict: Mapping[str, torch.Tensor],
                  slot: Optional[int] = None, candidate_chunk: int = 4096,
                  topk_grid_rows: int = 16, device="cuda", mesh=None):
-        """`state_dict`: the f32 weights, whole; under a mesh they may also
-        be this rank's row blocks of the tables (what `from_checkpoint`
+        """`state_dict`: the weights, whole, as they are (f32, the tables
+        f32 or, of param_dtype bf16, bf16); under a mesh they may also be
+        this rank's row blocks of the tables (what `from_checkpoint`
         restores). Whole tables are cut to this rank's blocks first and
-        cast to the compute dtype after, so no full table is cast on the
-        device."""
+        cast to the compute dtype after (an f32 table to bf16 under bf16
+        compute; a bf16 table stays bf16, and f32 compute casts its rows
+        after the gather), so no full table is cast on the device."""
         if mesh is None:        # a sharded config's weights, served whole
             cfg = cfg.replace(sharding=ShardingConfig())
         self.device = torch.device(device) if mesh is None else mesh.device
@@ -101,10 +103,11 @@ class ScoringService:
     def from_checkpoint(cls, cfg: Config, ds: Dataset, ckpt_dir: str,
                         which: str = "best", device="cuda", mesh=None,
                         **service_kw) -> "ScoringService":
-        """Serve checkpoint `which` of a `train` run (its f32 weights, read
-        straight onto `device`). Under a `mesh` each rank reads only the
-        rows it serves (of a sharded checkpoint of any layout, or of an
-        unsharded one); without one a sharded checkpoint is read whole.
+        """Serve checkpoint `which` of a `train` run (its weights in their
+        saved dtypes, read straight onto `device`). Under a `mesh` each
+        rank reads only the rows it serves (of a sharded checkpoint of any
+        layout, or of an unsharded one); without one a sharded checkpoint
+        is read whole.
         `service_kw` passes on slot, candidate_chunk and topk_grid_rows."""
         from .checkpoint import CheckpointManager
         restored = CheckpointManager(ckpt_dir, mesh).restore(

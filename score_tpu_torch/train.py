@@ -50,10 +50,16 @@ sharded `latest` and `best` checkpoints:
         -m score_tpu_torch.train configs4 <data_dir> \
         sharding.num_data=2 sharding.num_rows=2
 
-Left out, and refused where a config asks for them: non-f32 parameters,
-and a sharded config without a mesh (it is never run unsharded).
-In-batch negatives on a baseline arch raise ValueError, as the
-reference's step does: those archs score the positive alone.
+With model.param_dtype 'bfloat16' ScoreModel's tables, and their
+optimizer state, are bf16, as the reference's are (`optim.py` does
+optax's bf16 arithmetic on them; their gradients come from the
+scatter-add's bf16 form); every other leaf, and the baseline archs'
+tables, stay f32.
+
+Left out, and refused where a config asks for it: a sharded config
+without a mesh (it is never run unsharded). In-batch negatives on a
+baseline arch raise ValueError, as the reference's step does: those
+archs score the positive alone.
 """
 
 from __future__ import annotations
@@ -83,7 +89,7 @@ from .nn.embed import EmbeddingTables
 from .nn.model import (build_model, check_config, check_device,
                        stored_fanouts)
 from .nn.scorer import bce_loss
-from .optim import Optimizer, is_table, make_optimizer
+from .optim import Optimizer, constant, is_table, make_optimizer
 from .params import assign_weights, cast_tables, init_params
 from .profiling import maybe_profile
 from .sharding import (Mesh, ShardedLookup, all_gather_world, bringup,
@@ -102,18 +108,24 @@ def item_importance_weights(train_split, num_items: int) -> np.ndarray:
     return w.astype(np.float32)
 
 
-def table_l2(model: torch.nn.Module) -> torch.Tensor:
-    """Sum of squares over the embedding tables (the paper's λ‖Emb‖²)."""
-    return sum(p.square().sum() for k, p in model.named_parameters()
-               if is_table(k))
+def table_l2(model: torch.nn.Module,
+             l2_emb: Optional[float] = None) -> torch.Tensor:
+    """Sum of squares over the embedding tables (the paper's λ‖Emb‖²) in
+    their dtype (of bf16 tables a bf16 sum, as the reference's jnp.sum of
+    a bf16 square is); with `l2_emb`, times that rounded to the same
+    dtype, as the reference's weak-typed constant is."""
+    total = sum(p.square().sum() for k, p in model.named_parameters()
+                if is_table(k))
+    return total if l2_emb is None else constant(l2_emb, total.dtype) * total
 
 
 @dataclasses.dataclass
 class TrainState:
-    """The model (f32 master weights), its optimizer and the host-side
-    step counter; `generator` draws the in-batch shifts or the uniform
-    negatives a step is not given. Under a `mesh` the tables and their
-    optimizer state are this rank's row blocks."""
+    """The model (f32 weights, and its tables in param_dtype), its
+    optimizer and the host-side step counter; `generator` draws the
+    in-batch shifts or the uniform negatives a step is not given. Under a
+    `mesh` the tables and their optimizer state are this rank's row
+    blocks."""
 
     cfg: Config
     model: torch.nn.Module
@@ -129,7 +141,7 @@ class TrainState:
 
 def check_trainable(cfg: Config, mesh: Optional[Mesh] = None) -> None:
     """Raise NotImplementedError for what the port does not train (a
-    sharded layout without a mesh, non-f32 parameters: `check_config`),
+    sharded layout without a mesh: `check_config`),
     and ValueError for in-batch negatives on a baseline arch: its
     score_candidates ignores the shifts and scores the positive alone, so
     its [B, 1] logits cannot meet [B, 1 + k] labels (the reference's step
@@ -146,9 +158,10 @@ def init_state(cfg: Config, num_users: int, num_items: int,
                opt_state: Optional[Mapping] = None,
                steps_per_epoch: int = 0,
                mesh: Optional[Mesh] = None) -> TrainState:
-    """A TrainState on `device` from f32 weights (`params.init_params` or
-    `params.from_flax`), and optionally an optimizer state to start from
-    ({count, and the optimizer's state dicts}: a checkpoint's, or
+    """A TrainState on `device` from weights (`params.init_params` or
+    `params.from_flax`), each loaded in its parameter's dtype (the tables
+    in param_dtype, the rest f32), and optionally an optimizer state to
+    start from ({count, and the optimizer's state dicts}: a checkpoint's, or
     `params.opt_state_from_optax`). A restored state resumes at step
     `count`, as the reference's restored TrainState carries its step, so
     stride-K table updates and the schedule fall on the same steps.
@@ -166,7 +179,8 @@ def init_state(cfg: Config, num_users: int, num_items: int,
         lookup_fn = make_lookup_fn(mesh, cfg.sharding.lookup_mode,
                                    cfg.sharding.a2a_capacity)
     model = build_model(cfg, num_users, num_items, lookup_fn)
-    model.load_state_dict({k: v.to(device=device, dtype=torch.float32)
+    dtypes = {k: p.dtype for k, p in model.named_parameters()}
+    model.load_state_dict({k: v.to(device=device, dtype=dtypes.get(k))
                            for k, v in state_dict.items()}, assign=True)
     model.train()
     opt = make_optimizer(cfg, dict(model.named_parameters()),
@@ -309,15 +323,19 @@ def _sum_grads(mesh: Mesh, params: Mapping[str, torch.Tensor],
     """The whole batch's gradients from each rank's: dense parameters
     summed over the world, table blocks over the data group (the exchange
     has already summed the rows group's), each group's in one flat
-    all-reduce. A gradient a rank does not reach is its zeros: a table
-    only the L2 reaches has one on data block 0 alone."""
+    all-reduce a dtype (bf16 tables' gradients in bf16, as the
+    reference's GSPMD step reduces them). A gradient a rank does not
+    reach is its zeros: a table only the L2 reaches has one on data block
+    0 alone."""
     grads = [torch.zeros_like(params[k]) if g is None else g
              for k, g in zip(names, grads)]
-    for sharded, group in ((False, None), (True, mesh.data_group)):
-        idx = [j for j, k in enumerate(names)
-               if bool(state_spec(k, params[k])) == sharded]
-        if not idx:
-            continue
+    parts = {}
+    for j, k in enumerate(names):
+        sharded = bool(state_spec(k, params[k]))
+        parts.setdefault((sharded, grads[j].dtype), []).append(j)
+    # dense parameters first, then table blocks, in one order on every rank
+    for (sharded, _), idx in sorted(parts.items(), key=lambda kv: kv[0][0]):
+        group = mesh.data_group if sharded else None
         flat = torch.cat([grads[j].reshape(-1) for j in idx])
         dist.all_reduce(flat, group=group)
         lo = 0
@@ -460,7 +478,7 @@ def train_step(state: TrainState, graph: DeviceGraph, batch: Mapping,
     # under a mesh each table row's L2 enters once: on data block 0
     if (full and cfg.train.l2_emb > 0
             and (mesh is None or mesh.data_index == 0)):
-        total = loss + cfg.train.l2_emb * table_l2(model)
+        total = loss + table_l2(model, cfg.train.l2_emb)
     params = dict(model.named_parameters())
     # a parameter the step does not reach (a bias table's other side with
     # no L2; every table of the popularity floor on a dense step) gets no

@@ -10,10 +10,12 @@ writes <dir>/results.npz. A (2, 2) world runs the psum and a2a lookups
 and their table gradients, the a2a capacity and overflow cases, and the
 sharded train steps (configs4 at the tests' tiny widths, the draws fed
 in; and, against the port's own unsharded step on the whole batch,
-steps that draw their own shifts, masks and keys), and then the rest of
+steps that draw their own shifts, masks and keys, and bf16-parameter
+steps through each exchange), and then the rest of
 configs4 (`run_part2`): the row-sharded graph's gathers, `train()` with
 sharded checkpoints (restored into the world and into other layouts, a
-failed save), mesh serving, the overflow policy, `entry.dryrun_rank` and
+failed save), mesh serving, a bf16-parameter state's sharded checkpoint
+and mesh serving, the overflow policy, `entry.dryrun_rank` and
 the CLI's `main`, on the test's dataset saved in <dir>/data; a (2, 1)
 world the 'local' data-parallel step. It imports no JAX and nothing of
 the JAX package; the file has no test_ prefix, so pytest does not collect
@@ -90,6 +92,18 @@ PORT_CASES = {
     "local": dict(data=dict(train_neg_mode="inbatch_iw"),
                   train=dict(table_update_every=2, table_lr_boost=2.0),
                   sharding=dict(lookup_mode="local"), steps=3),
+    # bf16 parameters (bf16 tables and moments, f32 compute), a table
+    # step through each exchange: the gradients pre-reduced, exchanged and
+    # summed over the data group in bf16
+    "bf16params": dict(model=dict(param_dtype="bfloat16"),
+                       data=dict(train_neg_mode="inbatch_iw"),
+                       train=dict(table_update_every=2, table_lr_boost=2.0),
+                       steps=1),
+    "bf16params_psum": dict(model=dict(param_dtype="bfloat16"),
+                            data=dict(train_neg_mode="inbatch_iw"),
+                            train=dict(table_update_every=2,
+                                       table_lr_boost=2.0),
+                            sharding=dict(lookup_mode="psum"), steps=1),
 }
 
 
@@ -271,8 +285,9 @@ def run_steps(mesh, x: Inputs, cases, res, port_init: bool):
                     params = full_tables(m, state)
                 else:
                     params = dict(state.model.named_parameters())
-                for k, v in params.items():
-                    res[f"{key}.param.{k}"] = v.detach().numpy().copy()
+                for k, v in params.items():     # bf16 as f32, exactly
+                    res[f"{key}.param.{k}"] = v.detach().float().numpy(
+                    ).copy()
 
 
 def run_loop_overflow(mesh, x: Inputs, res):
@@ -452,6 +467,51 @@ def run_serving(mesh, ds, cfg, inp, ck, res):
     res["serve.topk_scores"] = _every_rank(mesh, scores)
 
 
+def run_bf16_params(mesh, ds, work, res):
+    """bf16 parameters under the mesh: configs4 (a2a, in-batch IW) takes
+    one step from the port's init; its sharded `latest` restores into a
+    state from other weights bit-equal (bf16 blocks and moments), reads
+    whole (no mesh) equal to the blocks gathered, and serves under the
+    mesh the scores its whole read serves."""
+    cfg = case_config(configs4, PORT_CASES["bf16params"], mesh.num_data,
+                      mesh.num_rows)
+    state = init_state(cfg, ds.num_users, ds.num_items, init_params(
+        cfg, ds.num_users, ds.num_items, torch.Generator().manual_seed(0)),
+        device="cpu", mesh=mesh)
+    per = DRIVER_B // mesh.size
+    batch = {k: torch.from_numpy(np.asarray(
+        getattr(ds.train, k)[mesh.rank * per:(mesh.rank + 1) * per],
+        np.int32)) for k in ("user", "item", "slot")}
+    neg_iw = torch.from_numpy(item_importance_weights(ds.train,
+                                                      ds.num_items))
+    state, _ = train_step(state, mesh_graph(ds.graph, mesh, "a2a"), batch,
+                          [5], neg_iw)
+    ck = os.path.join(work, "ck_bf16")
+    CheckpointManager(ck, mesh).save("latest", state, (0, 0), 0.5,
+                                     state.step, block=True)
+    fresh = init_state(cfg, ds.num_users, ds.num_items, init_params(
+        cfg, ds.num_users, ds.num_items, torch.Generator().manual_seed(7)),
+        device="cpu", mesh=mesh)
+    apply_restore(fresh, CheckpointManager(ck, mesh).restore("latest",
+                                                             fresh))
+    a, b = _state_tensors(state), _state_tensors(fresh)
+    equal = set(a) == set(b) and all(
+        a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]) for k in a)
+    equal &= sum(v.dtype == torch.bfloat16 for v in a.values()) == 6
+    whole = CheckpointManager(ck).restore("latest", torch.device("cpu"))
+    equal &= all(torch.equal(whole["params"][k], v)
+                 for k, v in full_tables(mesh, state).items())
+    users = np.asarray(ds.test.user[:SERVE_USERS], np.int32)
+    items = np.random.default_rng(3).integers(
+        1, ds.num_items + 1, (SERVE_USERS, SERVE_WIDTH)).astype(np.int32)
+    scores = [ScoringService.from_checkpoint(
+        cfg, ds, ck, "latest", device="cpu", mesh=m).score_batch(users,
+                                                                 items)
+        for m in (mesh, None)]
+    equal &= np.array_equal(*scores)
+    res["bf16ck.equal"] = _every_rank(mesh, float(equal))
+
+
 def run_overflow(mesh, ds, res):
     """At a2a_capacity 1: 'raise' raises RuntimeError naming a2a_capacity
     on every rank; 'warn' runs the epoch."""
@@ -472,6 +532,7 @@ def run_part2(mesh, work, inp, res):
     ds = load_dataset(os.path.join(work, "data"))
     run_graph(mesh, ds, res)
     run_driver(mesh, ds, inp, work, res)
+    run_bf16_params(mesh, ds, work, res)
     run_overflow(mesh, ds, res)
     res["dryrun.losses"] = _every_rank(mesh, entry.dryrun_rank(mesh))
     out = train_main(["configs4", os.path.join(work, "data"), "--device",

@@ -192,9 +192,16 @@ def test_gather_function_matches_autograd_of_plain(rng):
 
 
 def test_gather_refuses_low_precision_trainable_table():
-    t = torch.zeros(4, 8, dtype=torch.bfloat16, requires_grad=True)
+    """A table that trains must have a dtype the scatter-add takes: an
+    f16 one is refused, and gathers fine without a gradient; a bf16 one
+    (param_dtype bf16) trains, its gradient bf16."""
+    t = torch.zeros(4, 8, dtype=torch.float16, requires_grad=True)
     ids = torch.zeros(3, dtype=torch.int32)
     with pytest.raises(ValueError):
         tgather.gather_rows(t, ids)
     with torch.no_grad():                    # serving: no gradient, fine
         assert tgather.gather_rows(t, ids).shape == (3, 8)
+    b = torch.zeros(4, 8, dtype=torch.bfloat16, requires_grad=True)
+    (g,) = torch.autograd.grad(tgather.gather_rows(b, ids).sum(), [b])
+    assert g.dtype == torch.bfloat16
+    assert g[0].eq(3).all() and g[1:].eq(0).all()

@@ -13,9 +13,10 @@ imports no JAX, so it also runs on a host that has none:
 Tolerances: the gather is exact, and so is the scatter-add on
 integer-valued sources (sums of integers are exact in any order); on
 random sources it agrees to 1e-5 relative (f32 atomics add in no fixed
-order). The co-attention forward and backward are f32 inside, so f32
-outputs agree to 1e-4 (another summation order) and bf16 outputs to 2e-2
-(one bf16 rounding of values of order 1)."""
+order), and its bf16 form to 1 bf16 ulp of the exact sum rounded once.
+The co-attention forward and backward are f32 inside, so f32 outputs
+agree to 1e-4 (another summation order) and bf16 outputs to 2e-2 (one
+bf16 rounding of values of order 1)."""
 
 import dataclasses
 
@@ -543,6 +544,111 @@ def test_gather_backward_launches_scatter_add(cuda):
                                                    before[1] + 1)
     assert torch.equal(g.cpu(), tgather.scatter_add_rows_plain(ids, dout,
                                                                100))
+
+
+def _bf16_exact(ids, srcs, V):
+    """The exact sum of bf16 segments (in f64) rounded once to bf16: what
+    the bf16 scatter-add gives, up to f32's order effects."""
+    W = srcs[0].shape[-1]
+    exact = torch.zeros(V, W, dtype=torch.float64)
+    for i, x in zip(ids, srcs):
+        exact.index_add_(0, i.reshape(-1).long(), x.reshape(-1, W).double())
+    return exact
+
+
+def _bf16_ulps(got, exact):
+    """|got - exact| in bf16 ulps of the larger magnitude."""
+    got = got.double()
+    m = torch.maximum(got.abs(), exact.abs()).clamp_min(2.0 ** -126)
+    return (got - exact).abs() / torch.exp2(torch.floor(torch.log2(m)) - 7)
+
+
+@pytest.mark.parametrize("case", ["empty", "one row", "repeats", "wide"])
+@pytest.mark.parametrize("W", [1, 2, 3, 32])
+def test_bf16_scatter_add_kernel(cuda, case, W):
+    """The bf16 form: bf16 segments summed in f32 and rounded once into a
+    bf16 table, one launch (a bf16 one) for the group. Against the f64
+    sum rounded to bf16, every entry within 1 bf16 ulp; against the plain
+    version (index_add_ in f32, one rounding) bit-equal on integer-valued
+    sources. Cases: every segment empty (a zero table), one row taking
+    every id, 90% of the ids on 8 hot rows among pad ids, and a table
+    with an empty segment among others (W = 1, 2, 3 and 32: the 1-, 2-
+    and 4-element vectors)."""
+    rng = np.random.default_rng(W * 10 + len(case))
+    V = 700
+    lengths = {"empty": [0, 0], "one row": [3000, 40],
+               "repeats": [9000, 0, 512], "wide": [4096 * 9, 4096, 0, 300]
+               }[case]
+    ids, ints, noise = [], [], []
+    for n in lengths:
+        if case == "one row":
+            i = np.full(n, 5)
+        elif case == "repeats":
+            i = np.where(rng.random(n) < 0.9, rng.integers(1, 9, n),
+                         rng.integers(0, V, n))
+            i[rng.random(n) < 0.3] = 0
+        else:
+            i = rng.integers(0, V, n)
+        a = rng.integers(-8, 9, (n, W)).astype(np.float32)
+        b = rng.normal(size=(n, W)).astype(np.float32)
+        a[i == 0] = b[i == 0] = 0.0
+        ids.append(torch.from_numpy(i.astype(np.int32)))
+        ints.append(torch.from_numpy(a).to(torch.bfloat16))
+        noise.append(torch.from_numpy(b).to(torch.bfloat16))
+    for srcs, exact in ((ints, True), (noise, False)):
+        before = (tgather.scatter_add_rows.launches,
+                  tgather.scatter_add_rows.launches_bf16)
+        got = tgather.scatter_add_rows([i.to(cuda) for i in ids],
+                                       [x.to(cuda) for x in srcs], V)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16 and got.shape == (V, W)
+        launched = 0 if case == "empty" else 1
+        assert (tgather.scatter_add_rows.launches,
+                tgather.scatter_add_rows.launches_bf16) == (
+            before[0] + launched, before[1] + launched)
+        want = tgather.scatter_add_rows_plain(ids, srcs, V)
+        assert want.dtype == torch.bfloat16
+        if exact:
+            assert torch.equal(got.cpu(), want)
+        assert _bf16_ulps(got.cpu(), _bf16_exact(ids, srcs, V)).max() <= 1
+
+
+def test_bf16_table_lookup_backward(cuda):
+    """A grouped lookup into a bf16 table that requires a gradient: the
+    gathers and one bf16 scatter-add, its gradient bf16, within 1 bf16 ulp
+    of the f64 sum of the rows' bf16 cotangents (f32 compute: the
+    cotangents cast to bf16 before the scatter), and bit-equal to the
+    CPU's plain path on integer-valued cotangents."""
+    rng = np.random.default_rng(5)
+    V, d = 300, 32
+    table = torch.from_numpy(rng.normal(0, 0.01, (V, d))).to(torch.bfloat16)
+    ids = [torch.from_numpy(rng.integers(0, 40, s).astype(np.int32))
+           for s in ((64, 1), (64, 9, 10))]
+    for ints in (True, False):
+        douts = [torch.from_numpy(
+            (rng.integers(-8, 9, (*i.shape, d)) if ints
+             else rng.normal(size=(*i.shape, d))).astype(np.float32))
+            for i in ids]
+        grads = {}
+        for dev in (cuda, torch.device("cpu")):
+            t = table.to(dev).requires_grad_(True)
+            before = (tgather.gather_rows.launches,
+                      tgather.scatter_add_rows.launches_bf16)
+            outs = tgather.gather_rows_grouped(t, [i.to(dev) for i in ids])
+            loss = sum((o.float() * g.to(dev)).sum()
+                       for o, g in zip(outs, douts))
+            (grads[dev.type],) = torch.autograd.grad(loss, [t])
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                assert (tgather.gather_rows.launches,
+                        tgather.scatter_add_rows.launches_bf16) == (
+                    before[0] + 2, before[1] + 1)
+        got = grads["cuda"].cpu()
+        assert got.dtype == torch.bfloat16
+        if ints:
+            assert torch.equal(got, grads["cpu"])
+        cots = [g.to(torch.bfloat16) for g in douts]
+        assert _bf16_ulps(got, _bf16_exact(ids, cots, V)).max() <= 1
 
 
 # (B, C, T, n, m, d, target_aware) of the shared backward: d = 7 and 20

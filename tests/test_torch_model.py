@@ -194,9 +194,23 @@ def test_service_refuses_out_of_range_ids(tiny_dataset):
                                        seq_encoder="caser"),
                                   dict(arch="mf", param_dtype="bfloat16")])
 def test_model_outside_slice_raises(tiny_dataset, over):
-    """What the port still does not build: f16 compute and bf16 master
-    weights, for any arch and encoder (the Caser and SASRec encoders and
-    the baseline archs themselves are built: tests/test_torch_baselines.py)."""
-    with pytest.raises(NotImplementedError):
-        tbuild_model(_cfg(**over), tiny_dataset.num_users,
-                     tiny_dataset.num_items)
+    """What the port still does not build: f16 compute, for any arch and
+    encoder (the Caser and SASRec encoders and the baseline archs
+    themselves are built: tests/test_torch_baselines.py). bf16 parameters
+    are built as the reference builds them: a ScoreModel flag set (here
+    with the Caser encoder) gets bf16 tables and f32 dense leaves, and
+    MF's tables stay f32, as the reference's baseline archs ignore
+    param_dtype."""
+    cfg = _cfg(**over)
+    if "param_dtype" not in over:
+        with pytest.raises(NotImplementedError):
+            tbuild_model(cfg, tiny_dataset.num_users, tiny_dataset.num_items)
+        return
+    model = tbuild_model(cfg, tiny_dataset.num_users, tiny_dataset.num_items)
+    dtypes = {k: p.dtype for k, p in model.named_parameters()}
+    bf16 = {k for k, v in dtypes.items() if v == torch.bfloat16}
+    if cfg.model.arch == "mf":
+        assert not bf16 and any("table" in k for k in dtypes)
+    else:
+        assert bf16 == {"tables.user_table", "tables.item_table"}
+        assert any(k.startswith("gru_u.hconv_") for k in dtypes)

@@ -640,6 +640,59 @@ def test_sharded_step_matches_unsharded(worlds, name):
         _close_params(_params(res, key), _params(res, plain), key)
 
 
+# a bf16-parameter table step under the mesh against the unsharded one:
+# the share of a table's entries more than 1 bf16 ulp apart (ulps of the
+# larger of the entry and an Adam step, lr x boost; 0.12% measured), and
+# every entry's distance in Adam steps (2 lr x boost; 0.07 of it measured)
+BF16_TABLE_ULP_SHARE, BF16_TABLE_ADAM_STEPS = 0.02, 1.0
+
+
+@pytest.mark.parametrize("name", ["bf16params", "bf16params_psum"])
+def test_sharded_bf16_params_step_matches_unsharded(worlds, name):
+    """configs4(2, 2) with bf16 parameters (f32 compute, in-batch IW,
+    stride 2 at 2x): one table step through the a2a and through the psum
+    exchange against the port's unsharded step on the whole batch from
+    the same init and draws. The loss and the dense leaves within the f32
+    tolerance; the tables (read whole, bf16) within
+    BF16_TABLE_ULP_SHARE and BF16_TABLE_ADAM_STEPS: the sharded step
+    rounds a table's gradient to bf16 where the unsharded one does not
+    (each rank's pre-reduced rows before the reverse exchange, the
+    owner's sum, the data group's all-reduce), and Adam moves an entry
+    whose gradient lands on the other side of 0 by a full step."""
+    res = worlds["w4"]
+    tc = worker.case_config(tconfig.configs4, worker.PORT_CASES[name]).train
+    lr = tc.learning_rate * tc.table_lr_boost
+    key, plain = f"step.{name}.0", f"step.{name}.plain.0"
+    np.testing.assert_allclose(res[f"{key}.loss"], res[f"{plain}.loss"],
+                               **LOSS_TOL)
+    got, want = _params(res, key), _params(res, plain)
+    assert set(got) == set(want)
+    for k, w in want.items():
+        if "table" not in k:
+            np.testing.assert_allclose(got[k], w, err_msg=k, **TOL)
+            continue
+        # the values are bf16's, read as f32
+        assert np.array_equal(np.asarray(jnp.asarray(
+            w, jnp.bfloat16).astype(jnp.float32)), w), k
+        d = np.abs(got[k].astype(np.float64) - w)
+        m = np.maximum(np.abs(got[k]), np.abs(w)).astype(np.float64)
+        ulp = np.exp2(np.floor(np.log2(np.maximum(m, lr))) - 7)
+        share = float((d > ulp).mean())
+        print(f"{name} {k}: {share:.4f} of entries past 1 ulp, at most "
+              f"{d.max():.3e} from the unsharded step's")
+        assert share <= BF16_TABLE_ULP_SHARE, k
+        assert d.max() <= BF16_TABLE_ADAM_STEPS * 2 * lr, k
+
+
+def test_bf16_params_sharded_checkpoint_and_mesh_serving(worlds):
+    """A bf16-parameter configs4(2, 2) state after one a2a step: its
+    sharded `latest` restored into a state from other weights bit-equal
+    on every rank (its 6 bf16 tensors: the two tables and their Adam
+    moments), read whole equal to the blocks gathered, and served under
+    the mesh bit-equal to the whole read's service, on every rank."""
+    assert _same_on_every_rank(worlds["w4"]["bf16ck.equal"]) == 1.0
+
+
 def test_local_data_parallel_step_matches_unsharded(worlds):
     """lookup_mode 'local' over (data=2, rows=1): whole tables on each
     rank, gradients summed over the world; 3 stride-2 in-batch steps

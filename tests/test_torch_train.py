@@ -204,8 +204,10 @@ def test_restored_odd_count_resumes_stride(setup):
 def test_refuses_sharded_and_non_f32_params(tiny_dataset, entry, case):
     """configs4 must not train as configs3 on one device (ScoringService
     without a mesh serves its weights whole, as the reference's mesh=None
-    does), and bf16 master weights are not ported (the table-gradient
-    kernel takes f32)."""
+    does). bf16 parameters are ported: init_state and ScoringService take
+    them and hold the tables, and init_state their Adam moments, in bf16
+    (every dense leaf f32); tests/test_torch_bf16_params.py holds them to
+    the reference."""
     ds = tiny_dataset
     if case == "configs4":       # otherwise as the port trains configs3
         base = configs4()
@@ -221,12 +223,32 @@ def test_refuses_sharded_and_non_f32_params(tiny_dataset, entry, case):
         scores = ScoringService(cfg, ds, w, device="cpu").score(1, [1, 2])
         assert scores.shape == (2,) and np.isfinite(scores).all()
         return
-    with pytest.raises(NotImplementedError):
-        if entry == "init_state":
+    if case == "configs4":
+        with pytest.raises(NotImplementedError):
             ttrain.init_state(cfg, ds.num_users, ds.num_items, w,
                               device="cpu")
-        else:
-            ScoringService(cfg, ds, w, device="cpu")
+        return
+    # f32 weights (base's init) given to a bf16-parameter config
+    if entry == "init_state":
+        st = ttrain.init_state(cfg, ds.num_users, ds.num_items, w,
+                               device="cpu")
+        model = st.model
+        for key in ("mu", "nu"):
+            assert {k: v.dtype for k, v in getattr(st.opt, key).items()
+                    if "table" in k} == {
+                k: torch.bfloat16 for k in w if "table" in k}
+    else:
+        w = init_params(cfg, ds.num_users, ds.num_items,
+                        torch.Generator().manual_seed(0))
+        svc = ScoringService(cfg, ds, w, device="cpu")
+        model = svc.model
+        scores = svc.score(1, [1, 2])
+        assert scores.shape == (2,) and np.isfinite(scores).all()
+    dtypes = {k: p.dtype for k, p in model.named_parameters()}
+    assert {k for k, v in dtypes.items() if v == torch.bfloat16} == {
+        "tables.user_table", "tables.item_table"}
+    assert all(v == torch.float32 for k, v in dtypes.items()
+               if "table" not in k)
 
 
 def test_train_loop_matches_sequential_steps(setup):
