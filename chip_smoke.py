@@ -199,6 +199,14 @@ fails or no CUDA device is present.
    mesh=mesh)` against a whole read of `best`, scores bit-equal at 1 x
    101 and 16 x 4096, `score`'s p50 of both in turns and kernels a
    call; last `entry.dryrun_multichip(1)` in a process of its own.
+11. The quality protocol ([quality]): `score_tpu_torch.scripts.ladder.main`
+   on the card, configs3 and baseline_sasrec for 1 epoch at seed 0 on the
+   ladder's Taobao crossattr dataset (3,000 users, 6,000 items, 400,000
+   events, prepped in the temporary directory): its JSON holds the JAX
+   script's fields and finite metrics, the gather, scatter-add and
+   candidates forward and backward launched in the phase (no other
+   kernel), and configs3's val AUC lies above the popularity baseline's
+   pinned JAX 3-seed mean.
 
 The [roster] and [trainer] summary lines give each run's step ms,
 kernels a step, idle share and val AUC. The line before the last lists each kernel with
@@ -211,8 +219,9 @@ gives its time and bound at the training shape, B=4096 C=2, where its
 launches are counted, and the per-pair forward its mean pool's there, by
 CUDA graph; the wide kernels their d=64 training shape's, sum pool, with
 the launches of the [d64] sum-pool run; the scatter-add also its bf16
-form's, `bf16_*`, with the launches of the [bf16params] run); the last
-line is
+form's, `bf16_*`, with the launches of the [bf16params] run; the four
+kernels of the quality protocol their launches in [quality],
+`quality_launches`); the last line is
 {"ok": true, "device": {...}}. Every timing line carries the card's name
 and power limit.
 """
@@ -3153,6 +3162,60 @@ def phase_shard(card: str, ds, dev) -> dict:
     return out
 
 
+# --- phase 11: the quality protocol ---------------------------------------
+
+QUALITY_MODELS = ("configs3", "baseline_sasrec")
+QUALITY_ARGS = ("taobao", "1", "mode=crossattr", "seed=0",
+                "models=" + ",".join(QUALITY_MODELS))
+QUALITY_KERNELS = {"gather_rows", "scatter_add_rows", "cross_coattn_cand",
+                   "cross_coattn_cand_bwd"}
+# baseline_pop's val AUC, the mean of the JAX package's three seeds under
+# the same protocol (LADDER_roster_r3.json "stats")
+POP_VAL_AUC = 0.5953
+# the JAX script's record of a preset, and its test metrics
+# (LADDER_roster_r3.json)
+LADDER_RECORD = {"best_val_auc", "test", "steps", "wall_s"}
+LADDER_TEST = {"hr@1", "ndcg@1", "hr@5", "ndcg@5", "hr@10", "ndcg@10",
+               "mrr", "gauc", "auc"}
+
+
+def phase_quality(card: str, dev) -> dict:
+    """Phase 11: the ladder script on the card, checked as the module
+    docstring says."""
+    from score_tpu_torch.scripts import ladder
+    t_phase = time.perf_counter()
+    launches = reset_counts()
+    with tempfile.TemporaryDirectory() as work:
+        out_path = os.path.join(work, "ladder.json")
+        ladder.main([out_path, *QUALITY_ARGS], device=str(dev))
+        with open(out_path) as f:
+            res = json.load(f)
+    check_launches("[quality]", {n: fn.launches
+                                 for n, fn in launches.items()},
+                   QUALITY_KERNELS)
+    if tuple(res) != QUALITY_MODELS:
+        raise AssertionError(f"[quality] presets {list(res)}, want "
+                             f"{QUALITY_MODELS}")
+    for name, rec in res.items():
+        if set(rec) != LADDER_RECORD or set(rec["test"]) != LADDER_TEST:
+            raise AssertionError(f"[quality] {name}: fields {sorted(rec)}, "
+                                 f"test {sorted(rec['test'])}")
+        vals = [rec["best_val_auc"], rec["wall_s"], *rec["test"].values()]
+        if not (all(np.isfinite(vals)) and rec["steps"] > 0):
+            raise AssertionError(f"[quality] {name}: {rec}")
+    if not res["configs3"]["best_val_auc"] > POP_VAL_AUC:
+        raise AssertionError(
+            f"[quality] configs3 val AUC {res['configs3']['best_val_auc']} "
+            f"not above the popularity baseline's {POP_VAL_AUC}")
+    out = {n: dict(val_auc=r["best_val_auc"], test_auc=r["test"]["auc"],
+                   ndcg10=r["test"]["ndcg@10"], steps=r["steps"],
+                   wall_s=r["wall_s"]) for n, r in res.items()}
+    counts = {n: fn.launches for n, fn in launches.items() if fn.launches}
+    log(f"[quality] {json.dumps(out)}; launches {counts}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA "
@@ -3205,26 +3268,33 @@ def main() -> int:
     mark("[bf16params]")
     phase_shard(card, ds, dev)
     mark("[shard]")
+    quality = phase_quality(card, dev)
+    mark("[quality]")
     kernels = [
         dict(name="gather_rows", route="cuda",
              source="score_tpu_torch/csrc/gather.cu",
              replaces="score_tpu/kernels/gather.py:67",
-             launches=launches["gather_rows"], **gather),
+             launches=launches["gather_rows"],
+             quality_launches=quality["gather_rows"], **gather),
         dict(name="scatter_add_rows", route="cuda",
              source="score_tpu_torch/csrc/scatter_add.cu",
              replaces="score_tpu/kernels/gather.py:67 (its transpose, "
                       "XLA's scatter-add)",
              launches=launches["scatter_add_rows"],
+             quality_launches=quality["scatter_add_rows"],
              bf16_launches=bf16params["bfloat16"]["launches_bf16"],
              **scatter),
         dict(name="cross_coattn_cand", route="cuda",
              source="score_tpu_torch/csrc/coattn_cand.cu",
              replaces="score_tpu/kernels/coattn_cand.py:275",
-             launches=launches["cross_coattn_cand"], **coattn),
+             launches=launches["cross_coattn_cand"],
+             quality_launches=quality["cross_coattn_cand"], **coattn),
         dict(name="cross_coattn_cand_bwd", route="cuda",
              source="score_tpu_torch/csrc/coattn_cand_bwd.cu",
              replaces="score_tpu/kernels/coattn_cand.py:301",
-             launches=launches["cross_coattn_cand_bwd"], **coattn_bwd),
+             launches=launches["cross_coattn_cand_bwd"],
+             quality_launches=quality["cross_coattn_cand_bwd"],
+             **coattn_bwd),
         dict(name="cross_coattn_pair", route="cuda",
              source="score_tpu_torch/csrc/coattn_pair.cu",
              replaces="score_tpu/kernels/coattn.py:110",

@@ -6,7 +6,8 @@ train steps on the CPU, with the sum pool and with the max pool, evaluate
 the validation split, serve and train a baseline arch (DELF), run the
 training CLI from a raw CSV log to its test line (configs3, and configs0
 with its preset's uniform negatives), and run the entry points
-(score_tpu_torch/entry.py: the forward and the sharded dry run).
+(score_tpu_torch/entry.py: the forward and the sharded dry run), and
+import the quality protocol's modules (score_tpu_torch/scripts).
 And the port's copies of that host layer (config presets, the synthetic
 generator, dataset prep and its CSV reader, the batch iterator) give
 what the JAX package's give."""
@@ -228,6 +229,27 @@ print("CLI", test_line[0])
 """
 
 
+# the quality protocol's modules, each imported with JAX and score_tpu
+# blocked, and their host-side rules run
+QUALITY_SCRIPTS = BLOCK + r"""
+import importlib
+
+names = ("ladder", "table_stride_ablation", "resample_ablation",
+         "bf16_quality", "negmode_quality")
+mods = {n: importlib.import_module(f"score_tpu_torch.scripts.{n}")
+        for n in names}
+ladder = mods["ladder"]
+kw = ladder.gen_kw("crossattr")
+tag = ladder.data_tag("taobao", "crossattr", kw)
+cfg = mods["table_stride_ablation"].config(2, 2.0, 4, 1)
+assert cfg.train.table_update_every == 2 and cfg.train.batch_size == 512
+assert mods["resample_ablation"].config(True, 4, 0).data.neighbor_resample
+loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+assert not loaded, loaded
+print("QUALITY", tag, sorted(mods))
+"""
+
+
 def _run_blocked(script, tmp_path):
     root = Path(__file__).resolve().parents[1]
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -254,6 +276,12 @@ def test_port_serves_and_trains_without_jax(tmp_path):
     assert "DRYRUN" in proc.stdout, proc.stdout
 
 
+def test_quality_scripts_import_without_jax(tmp_path):
+    proc = _run_blocked(QUALITY_SCRIPTS, tmp_path)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.startswith("QUALITY taobao_crossattr_"), proc.stdout
+
+
 @pytest.mark.parametrize("name", ["configs0", "configs1", "configs2",
                                   "configs3", "configs4"])
 def test_config_copies_equal(name):
@@ -267,7 +295,7 @@ def test_config_copies_equal(name):
     assert sorted(tconfig.PRESETS) == sorted(jconfig.PRESETS)
 
 
-@pytest.mark.parametrize("mode", ["latent", "crossattr"])
+@pytest.mark.parametrize("mode", ["latent", "crossattr", "collab"])
 def test_data_copies_equal(mode):
     """synth_events, build_dataset (with its native adjacency code, as
     both packages default to) and TargetIterator, for one seed."""
