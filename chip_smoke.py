@@ -207,6 +207,29 @@ fails or no CUDA device is present.
    candidates forward and backward launched in the phase (no other
    kernel), and configs3's val AUC lies above the popularity baseline's
    pinned JAX 3-seed mean.
+12. The reference-scale scripts ([scale]): each of
+   `score_tpu_torch.scripts`' prep_bench, eval_scale, serve_bench (both
+   modes), perf_sweep and scaling on the card at reduced knobs
+   (`SCALE_*`: 1e6 prep events; 2e6 eval events over 2e4 users and 8e4
+   items, 50 steps; a catalogue of ~1/10 of the reference's; the bench
+   step b4096_bf16_inbatch_iw for 2 timed calls; scaling at N=1 in a
+   one-rank NCCL world): each record holds its JAX script's keys (the
+   pinned PREP_BENCH_r3, EVAL_SCALE_r5_bf16, SERVE_BENCH_r4 and
+   SERVE_CATALOG_r5.json) with finite numbers and the card's line; the
+   gather, scatter-add and candidates forward and backward launched in
+   the phase (no other kernel). Then eval_scale's trained weights
+   evaluated over the whole val split at eval_batch 2048 and at 8192,
+   whose item side holds 2,382,888,960 elements a block, past 2^31: the
+   AUC and ranking metrics agree within 1e-3 and each run's histogram
+   totals equal the targets and the negatives; 8 blocks of 2048 profiled
+   (wall and device ms, kernels and idle share a block, the costliest
+   kernels). Last, the gather and the
+   candidates forward at the reference-scale shapes (`SCALE_GATHERS`,
+   `SCALE_CAND`: the 1e8 prep's tables and item graph, the catalogue's
+   graph, eval blocks of 2048 and 8192, the catalogue's 16 x 8192 chunk)
+   on random inputs, each launch against the same work in four launches
+   (the gather bit-equal, the co-attention within 2e-2), its time beside
+   its bound.
 
 The [roster] and [trainer] summary lines give each run's step ms,
 kernels a step, idle share and val AUC. The line before the last lists each kernel with
@@ -3216,6 +3239,293 @@ def phase_quality(card: str, dev) -> dict:
     return counts
 
 
+# --- phase 12: the reference-scale scripts at reduced knobs ---------------
+
+SCALE_PREP = ("events=1000000", "csv_rows=200000", "users=20000",
+              "items=80000")
+SCALE_EVAL = dict(events=2_000_000, users=20_000, items=80_000,
+                  train_steps=50)
+SCALE_SERVE = ("num_users=20000", "num_items=40000", "num_events=500000",
+               "reps=8")
+SCALE_CATALOG = ("users=100000", "items=370000", "events=1400000")
+SCALE_SWEEP = ("b4096_bf16_inbatch_iw", "num_users=20000",
+               "num_items=40000", "num_events=500000", "calls=2")
+SCALE_BATCHES = (2048, 8192)    # eval blocks; 8192's item side past 2^31
+SCALE_KERNELS = {"gather_rows", "scatter_add_rows", "cross_coattn_cand",
+                 "cross_coattn_cand_bwd"}
+SCALE_RECORDS = {"prep_bench": "PREP_BENCH_r3.json",
+                 "eval_scale": "EVAL_SCALE_r5_bf16.json",
+                 "serve_bench": "SERVE_BENCH_r4.json",
+                 "serve_catalog": "SERVE_CATALOG_r5.json"}
+
+
+def _check_record(what: str, got: dict, card: str) -> None:
+    """`got` holds every key of the JAX record it stands beside, its
+    numbers finite, and the card's line as its device."""
+    root = Path(__file__).resolve().parent
+    want = json.loads((root / SCALE_RECORDS[what]).read_text())
+    missing = set(want) - set(got)
+    if missing:
+        raise AssertionError(f"[scale] {what}: keys {sorted(missing)} of "
+                             f"{SCALE_RECORDS[what]} missing")
+    if got["device"] != card:
+        raise AssertionError(f"[scale] {what}: device {got['device']!r}")
+
+    def numbers(x):
+        if isinstance(x, dict):
+            for v in x.values():
+                yield from numbers(v)
+        elif isinstance(x, (int, float)) and not isinstance(x, bool):
+            yield x
+    if not all(np.isfinite(list(numbers(got)))):
+        raise AssertionError(f"[scale] {what}: {got}")
+
+
+# (label, rows, width, dtype, ids shape) of the gathers the reference
+# scale gives: the 1e8 prep's tables (1,000,000 users, 2,682,999 items,
+# rows rounded up to 64) and item graph, the catalogue's item graph
+# (2,919,544 items), at the eval blocks of 2048 and 8192 targets x 101
+# candidates and the catalogue's chunk of 16 x 8192
+SCALE_GATHERS = [
+    ("user table bf16 [1000064,32] ids [2048,101,9,10] (eval block 2048, "
+     "item side)", 1000064, D, torch.bfloat16, (2048, 101, T, FAN)),
+    ("user table bf16 [1000064,32] ids [8192,101,9,10] (eval block 8192, "
+     "item side)", 1000064, D, torch.bfloat16, (8192, 101, T, FAN)),
+    ("item table bf16 [2683008,32] ids [8192,101] (eval block 8192, "
+     "candidates)", 2683008, D, torch.bfloat16, (8192, 101)),
+    ("item graph int32 [2683008,90] ids [8192,101] (eval block 8192, item "
+     "histories)", 2683008, T * FAN, torch.int32, (8192, 101)),
+    ("item graph int32 [2919552,90] ids [16,8192] (catalogue chunk, item "
+     "histories)", 2919552, T * FAN, torch.int32, (16, 8192)),
+    ("user table bf16 [1000064,32] ids [16,8192,9,10] (catalogue chunk, "
+     "item side)", 1000064, D, torch.bfloat16, (16, 8192, T, FAN)),
+]
+SCALE_CAND = [dict(B=2048, C=101), dict(B=8192, C=101), dict(B=16, C=8192)]
+
+
+SCALE_PLAIN_ROWS = 2048    # the co-attention's plain version, B rows a call
+
+
+def _scale_kernels(card: str, dev, gen) -> None:
+    """The gather and the candidates forward at the reference-scale
+    shapes, each held against its plain version on the same inputs (the
+    gather bit for bit, the co-attention within bf16's tolerance, its
+    plain version over SCALE_PLAIN_ROWS rows of B a call) and against the
+    same work split in four launches along its first axis (each below
+    2^31 elements where the whole passes it); its time beside its
+    bound."""
+    from score_tpu_torch.kernels.coattn_cand import (cross_coattn_cand,
+                                                     cross_coattn_cand_plain)
+    from score_tpu_torch.kernels.gather import gather_rows, gather_rows_plain
+    for label, rows, width, dtype, shape in SCALE_GATHERS:
+        if dtype == torch.int32:
+            table = torch.randint(0, 1 << 30, (rows, width), generator=gen,
+                                  device=dev, dtype=torch.int32)
+        else:
+            table = torch.randn(rows, width, generator=gen,
+                                device=dev).to(dtype)
+        ids = torch.randint(0, rows, shape, generator=gen, device=dev,
+                            dtype=torch.int32)
+        got = gather_rows(table, ids)
+        if not torch.equal(got, gather_rows_plain(table, ids)):
+            raise AssertionError(f"[scale] gather {label}: differs from "
+                                 f"its plain version")
+        parts = torch.cat([gather_rows(table, c)
+                           for c in ids.chunk(4, dim=0)])
+        if not torch.equal(got, parts):
+            raise AssertionError(f"[scale] gather {label}: one launch and "
+                                 f"four differ")
+        del parts
+        ms = cuda_ms(lambda: gather_rows(table, ids), iters=5, warmup=1)
+        plain_ms = cuda_ms(lambda: gather_rows_plain(table, ids), iters=5,
+                           warmup=1)
+        b = bound(torch.unique(ids).numel() * width * table.element_size()
+                  + nbytes(ids, got), 0)
+        log(f"[scale] gather {label}: {got.numel():,} elements out, equal "
+            f"to the plain version and to four launches; kernel {ms:.4f} "
+            f"ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']}) [{card}]")
+        del table, ids, got
+        torch.cuda.empty_cache()
+    for kw in SCALE_CAND:
+        args = _cand_inputs(gen, dev, torch.bfloat16, **kw)
+        got = cross_coattn_cand(*args)
+        Wr = args[4]
+        if not all(torch.isfinite(g).all() for g in got):
+            raise AssertionError(f"[scale] coattn {kw}: non-finite")
+        worst = 0.0
+        for lo in range(0, kw["B"], SCALE_PLAIN_ROWS):
+            rows = slice(lo, lo + SCALE_PLAIN_ROWS)
+            want = cross_coattn_cand_plain(
+                *[a if a is Wr else a[rows] for a in args])
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g[rows], w, rtol=BF16_TOL,
+                                           atol=BF16_TOL)
+                worst = max(worst,
+                            (g[rows].float() - w.float()).abs().max().item())
+            del want
+        split = [[a] * 4 if a is Wr else a.chunk(4) for a in args]
+        parts = [cross_coattn_cand(*[s[j] for s in split]) for j in range(4)]
+        diff = 0.0
+        for g, p in zip(got, zip(*parts)):
+            p = torch.cat(p)
+            torch.testing.assert_close(g, p, rtol=BF16_TOL, atol=BF16_TOL)
+            diff = max(diff, (g.float() - p.float()).abs().max().item())
+        del parts, split
+        ms = cuda_ms(lambda: cross_coattn_cand(*args), iters=5, warmup=1)
+        b = bound(*_cand_work(args, kw["C"], backward=False))
+        log(f"[scale] coattn {kw} bf16: item side {args[1].numel():,} "
+            f"elements, against the plain version max |err| {worst:.3e} "
+            f"(tol {BF16_TOL}), against four launches max |diff| "
+            f"{diff:.3e}; kernel {ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']}) [{card}]")
+        del args, got
+        torch.cuda.empty_cache()
+
+
+# the device functions of the port's gather and co-attention kernels, as
+# torch.profiler names them (csrc/gather.cu, csrc/coattn_cand.cuh)
+EVAL_PORT_KERNELS = ("gather_rows_kernel", "gather_flat_kernel",
+                     "cand_fwd_kernel")
+
+
+def _eval_block_profile(card: str, cfg, ds, weights, dev) -> dict:
+    """Where an eval block's time goes: `evaluate` over 8 blocks of
+    SCALE_BATCHES[0] targets (after one such call as warm-up) under
+    torch.profiler, on the [scale] phase's reduced dataset (SCALE_EVAL):
+    the wall ms, kernels and device ms a block, the idle share, the
+    device ms and launches a block of the port's kernels (EVAL_PORT_KERNELS)
+    and the kernels that take the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from score_tpu_torch.graph import device_graph
+    from score_tpu_torch.nn.model import build_model
+    from score_tpu_torch.params import assign_weights
+    from score_tpu_torch.train import evaluate, make_eval_step
+    B, blocks = SCALE_BATCHES[0], 8
+    graph = device_graph(ds.graph, dev)
+    model = build_model(cfg, ds.num_users, ds.num_items)
+    assign_weights(model, {k: v.to(dev) for k, v in weights.items()})
+    step = make_eval_step(model)
+    del model
+    evaluate(step, graph, ds.val, batch_size=B, max_targets=blocks * B)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        evaluate(step, graph, ds.val, batch_size=B, max_targets=blocks * B)
+        wall_ms = (time.perf_counter() - t0) * 1e3 / blocks
+    evs = [ev for ev in prof.key_averages()
+           if ev.device_type == DeviceType.CUDA and ev.self_device_time_total]
+    kernels = sum(ev.count for ev in evs) / blocks
+    dev_ms = sum(ev.self_device_time_total for ev in evs) / 1e3 / blocks
+    port = {name: [ev for ev in evs if name in ev.key]
+            for name in EVAL_PORT_KERNELS}
+    port = {name: (sum(ev.self_device_time_total for ev in e) / 1e3 / blocks,
+                   sum(ev.count for ev in e) / blocks)
+            for name, e in port.items()}
+    if not port["gather_rows_kernel"][1] + port["gather_flat_kernel"][1] or \
+            not port["cand_fwd_kernel"][1]:
+        raise AssertionError(f"[scale] eval profile: the port's kernels "
+                             f"not found among {[ev.key for ev in evs]}")
+    port_ms = sum(ms for ms, _ in port.values())
+    top = sorted(evs, key=lambda ev: -ev.self_device_time_total)[:6]
+    out = dict(wall_ms=wall_ms, kernels=kernels, device_ms=dev_ms,
+               idle=1 - dev_ms / wall_ms, port_ms=port_ms)
+    costliest = "; ".join(
+        f"{ev.key[:48]} {ev.self_device_time_total / 1e3 / blocks:.3f} ms"
+        for ev in top)
+    ours = ", ".join(f"{name} {ms:.3f} ms x{n:g}"
+                     for name, (ms, n) in port.items())
+    log(f"[scale] eval block of {B} x 101 (profiled, {blocks} blocks, the "
+        f"reduced dataset: {ds.num_users:,} users, {ds.num_items:,} "
+        f"items): {wall_ms:.3f} ms a block, {kernels:.1f} kernels, device "
+        f"{dev_ms:.3f} ms, idle share {out['idle']:.3f}; the port's "
+        f"kernels {port_ms:.3f} ms a block ({ours}); most device time: "
+        f"{costliest} [{card}]")
+    return out
+
+
+def phase_scale(card: str, dev) -> dict:
+    """Phase 12 ([scale]): the reference-scale scripts at reduced knobs,
+    and one set of weights evaluated at eval blocks of 2048 and 8192."""
+    import torch.distributed as dist
+    from score_tpu_torch.scripts import (eval_scale, perf_sweep,
+                                         prep_bench, scaling, serve_bench)
+    from score_tpu_torch.sharding import bringup
+    t_phase = time.perf_counter()
+    launches = reset_counts()
+    out = {}
+    with tempfile.TemporaryDirectory() as work:
+        res = prep_bench.main([f"out={work}/prep.json", *SCALE_PREP],
+                              device=str(dev))
+        _check_record("prep_bench", res, card)
+        out["prep_events_per_s"] = res["events_per_s"]
+        log(f"[scale] prep_bench: {res['events']:,} events in "
+            f"{res['build_dataset_s']} s ({res['events_per_s']:,}/s), kept "
+            f"{res['events_kept']:,}; CSV {res['csv_rows_per_s']:,} rows/s "
+            f"[{card}]")
+        res, cfg, ds, weights = eval_scale.run(
+            dict(eval_scale.DEFAULTS, **SCALE_EVAL), dev)
+        _check_record("eval_scale", res, card)
+        out["eval"] = {}
+        for B in SCALE_BATCHES:
+            ev = eval_scale.evaluate_weights(cfg, ds, weights, B, dev)
+            n = len(ds.val)
+            if (ev["hist_pos"], ev["hist_neg"]) != (n, n * 100):
+                raise AssertionError(
+                    f"[scale] eval_batch {B}: histogram totals "
+                    f"{ev['hist_pos']}, {ev['hist_neg']}; want {n}, "
+                    f"{n * 100}")
+            out["eval"][B] = ev
+            log(f"[scale] eval_batch {B}: {n:,} targets in "
+                f"{ev['wall_s']:.3f} s ({n / ev['wall_s']:,.0f} targets/s, "
+                f"{ev['blocks']} blocks; item side {B * 101 * T * FAN * D:,}"
+                f" elements a block), auc {ev['metrics']['auc']:.6f}, "
+                f"sum(hist_pos) {ev['hist_pos']:,} of {n:,}, sum(hist_neg) "
+                f"{ev['hist_neg']:,} of {n * 100:,} [{card}]")
+        a, b = (out["eval"][B]["metrics"] for B in SCALE_BATCHES)
+        diff = max(abs(a[k] - b[k]) for k in a)
+        if set(a) != set(b) or diff > EVAL_AUC_TOL:
+            raise AssertionError(f"[scale] eval_batch {SCALE_BATCHES[0]} "
+                                 f"{a} against {SCALE_BATCHES[1]} {b}")
+        log(f"[scale] eval_batch {SCALE_BATCHES[0]} against "
+            f"{SCALE_BATCHES[1]}: largest metric difference {diff:.2e} "
+            f"(limit {EVAL_AUC_TOL})")
+        out["eval_profile"] = _eval_block_profile(card, cfg, ds, weights,
+                                                  dev)
+        del ds, weights
+        res = serve_bench.main([f"{work}/serve.json", *SCALE_SERVE],
+                               device=str(dev))
+        _check_record("serve_bench", res, card)
+        out["serve_p50_ms"] = res["single_p50_ms"]
+        res = serve_bench.main([f"{work}/catalog.json", "--catalog",
+                                *SCALE_CATALOG], device=str(dev))
+        _check_record("serve_catalog", res, card)
+        out["catalog_topk_s"] = res["topk_warm_s"]
+        rows = perf_sweep.main(list(SCALE_SWEEP), device=str(dev))
+        if len(rows) != 1 or "error" in rows[0]:
+            raise AssertionError(f"[scale] perf_sweep: {rows}")
+        out["sweep_examples_per_s"] = rows[0]["examples_per_s"]
+        mesh, _ = bringup(None, init_method=f"file://{work}/store",
+                          world_size=1, rank=0, device=dev)
+        try:
+            rec = scaling.main(["256", "20"], device=str(dev))
+        finally:
+            dist.destroy_process_group()
+        if list(rec["examples_per_s"]) != ["1"] or not (
+                rec["examples_per_s"]["1"] > 0):
+            raise AssertionError(f"[scale] scaling: {rec}")
+        out["scaling_examples_per_s"] = rec["examples_per_s"]["1"]
+    counts = {n: fn.launches for n, fn in launches.items()}
+    check_launches("[scale]", counts, SCALE_KERNELS)
+    log(f"[scale] launches {({n: c for n, c in counts.items() if c})} "
+        f"[{card}]")
+    _scale_kernels(card, dev, torch.Generator(device=dev).manual_seed(SEED))
+    log(f"[scale] phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA "
@@ -3270,6 +3580,8 @@ def main() -> int:
     mark("[shard]")
     quality = phase_quality(card, dev)
     mark("[quality]")
+    phase_scale(card, dev)
+    mark("[scale]")
     kernels = [
         dict(name="gather_rows", route="cuda",
              source="score_tpu_torch/csrc/gather.cu",

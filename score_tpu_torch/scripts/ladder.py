@@ -120,10 +120,19 @@ def split_argv(argv, device: str = "cuda") -> tuple[list, dict, str]:
     return [a for a in argv if "=" not in a], kv, device
 
 
-def knob_values(kv: dict) -> dict:
-    """Generator knobs from k=v strings: a float if it has a '.', else an
-    int."""
-    return {k: float(v) if "." in v else int(v) for k, v in kv.items()}
+def knob_values(kv: dict, defaults: dict | None = None) -> dict:
+    """Knobs from k=v strings. Without `defaults` (the generator's open
+    set of knobs): a float if it has a '.', else an int. With them:
+    `defaults` with `kv` over them, each cast to its default's type; an
+    unknown key raises KeyError, naming the knobs."""
+    if defaults is None:
+        return {k: float(v) if "." in v else int(v) for k, v in kv.items()}
+    kw = dict(defaults)
+    for k, v in kv.items():
+        if k not in kw:
+            raise KeyError(f"unknown knob {k!r}; knobs: {', '.join(kw)}")
+        kw[k] = type(kw[k])(v)
+    return kw
 
 
 def main(argv=None, device: str = "cuda") -> dict:

@@ -603,7 +603,8 @@ def _eval_accum(scores: torch.Tensor, w: torch.Tensor, carry: Dict,
 
 def evaluate(eval_step: Callable, graph, targets,
              batch_size: int = 256, ks: Sequence[int] = (1, 5, 10),
-             max_targets: Optional[int] = None) -> Dict[str, float]:
+             max_targets: Optional[int] = None,
+             counts: Optional[Dict[str, int]] = None) -> Dict[str, float]:
     """Streaming split evaluation: the pooled AUC and the per-target
     ranking metrics of `targets` (user, item, slot, neg), as the
     reference's evaluate.
@@ -613,7 +614,10 @@ def evaluate(eval_step: Callable, graph, targets,
     the device-resident carry (two F16_BINS histograms and one row of
     ranking sums per block), which is read back once at the end and
     reduced in f64 on the host. `max_targets` scores a subsample drawn
-    with a fixed seed (np.random.default_rng(0)), the same every run.
+    with a fixed seed (np.random.default_rng(0)), the same every run. A
+    `counts` dict receives the blocks scored and the totals of the two
+    histograms (`hist_pos`, `hist_neg`: the targets and the negatives
+    counted, int32 bin counts summed in int64).
 
     Under the eval step's mesh (`make_eval_step(model, mesh)`) every rank
     passes the same targets and scores its share of each block
@@ -656,6 +660,10 @@ def evaluate(eval_step: Callable, graph, targets,
         for v in carry.values():
             dist.all_reduce(v)
     carry = {k: v.cpu().numpy() for k, v in carry.items()}   # one readback
+    if counts is not None:
+        counts.update(blocks=n_blocks, **{
+            k: int(carry[k].sum(dtype=np.int64))
+            for k in ("hist_pos", "hist_neg")})
     sums = carry["msums"].astype(np.float64).sum(axis=0)
     by_name = dict(zip(names, sums))
     denom = max(by_name.pop("wsum"), 1.0)
@@ -699,6 +707,42 @@ def _stage_batches(it: TargetIterator, k: int, device, negatives=None,
             out[j][key] = buf[j, lo:lo + w].view(shape)
         lo += w
     return out
+
+
+def draw_fns(cfg: Config, num_items: int,
+             shifts_fn: Optional[Callable[[int, int], List[int]]] = None,
+             negatives_fn: Optional[Callable[[int, int], object]] = None
+             ) -> Tuple[Callable, Callable]:
+    """(shifts_fn, negatives_fn), each `(step, B)` -> that step's in-batch
+    shifts or raw [B, k] uniform negatives: the given ones, else
+    `step_shifts` / `step_negatives` of cfg.train.seed."""
+    seed, k_neg = cfg.train.seed, cfg.data.num_train_neg
+    return (shifts_fn or (lambda s, b: step_shifts(seed, s, k_neg, b)),
+            negatives_fn or (
+                lambda s, b: step_negatives(seed, s, b, k_neg, num_items)))
+
+
+def stage_chunk(cfg: Config, it: TargetIterator, k: int, step: int,
+                device, num_items: int, rows: slice = slice(None),
+                shifts_fn: Optional[Callable[[int, int], List[int]]] = None,
+                negatives_fn: Optional[Callable[[int, int], object]] = None
+                ) -> Tuple[List[Dict[str, torch.Tensor]], dict]:
+    """Steps step .. step + k - 1 staged as `train` stages a chunk: their
+    batches on `device` (`_stage_batches`, rows `rows` of each) and
+    train_loop's draws for them, {shifts_list} under in-batch negatives
+    or {negatives_list} under uniform ones (staged with the batches), from
+    `draw_fns`; so `train_loop(state, graph, batches, neg_iw=...,
+    **draws)`."""
+    shifts_fn, negatives_fn = draw_fns(cfg, num_items, shifts_fn,
+                                       negatives_fn)
+    B = it.batch_size
+    if cfg.data.train_neg_mode == "uniform":
+        batches = _stage_batches(
+            it, k, device, [negatives_fn(step + j, B) for j in range(k)],
+            rows)
+        return batches, dict(negatives_list=[b.pop("neg") for b in batches])
+    return (_stage_batches(it, k, device, rows=rows),
+            dict(shifts_list=[shifts_fn(step + j, B) for j in range(k)]))
 
 
 def _batch_rows(batch: Mapping, rows: slice) -> dict:
@@ -802,12 +846,10 @@ def train(cfg: Config, ds: Dataset, verbose: bool = True,
     if cfg.data.train_neg_mode == "inbatch_iw":
         neg_iw = torch.from_numpy(
             item_importance_weights(ds.train, ds.num_items)).to(dev)
-    k_neg, B = cfg.data.num_train_neg, tc.batch_size
+    B = tc.batch_size
     uniform = cfg.data.train_neg_mode == "uniform"
-    shifts_fn = parity_shifts_fn or (
-        lambda s, b: step_shifts(tc.seed, s, k_neg, b))
-    negatives_fn = parity_negatives_fn or (
-        lambda s, b: step_negatives(tc.seed, s, b, k_neg, ds.num_items))
+    shifts_fn, negatives_fn = draw_fns(cfg, ds.num_items, parity_shifts_fn,
+                                       parity_negatives_fn)
     eval_step = make_eval_step(state.model, mesh)
 
     steps_per_epoch = it.steps_per_epoch
@@ -850,17 +892,11 @@ def train(cfg: Config, ds: Dataset, verbose: bool = True,
     while step < total_steps:
         chunk = min(next_boundary(step) - step, 50)
         if chunk > 1 and not tc.profile_dir:
-            if uniform:
-                batches = _stage_batches(
-                    it, chunk, dev,
-                    [negatives_fn(step + j, B) for j in range(chunk)], rows)
-                state, ms = train_loop(
-                    state, graph, batches, neg_iw=neg_iw,
-                    negatives_list=[b.pop("neg") for b in batches])
-            else:
-                batches = _stage_batches(it, chunk, dev, rows=rows)
-                shifts = [shifts_fn(step + j, B) for j in range(chunk)]
-                state, ms = train_loop(state, graph, batches, shifts, neg_iw)
+            batches, draws = stage_chunk(cfg, it, chunk, step, dev,
+                                         ds.num_items, rows, shifts_fn,
+                                         negatives_fn)
+            state, ms = train_loop(state, graph, batches, neg_iw=neg_iw,
+                                   **draws)
             m = {"loss": ms["loss"][-1], "batch_auc": ms["batch_auc"][0]}
             if "a2a_overflow" in ms:
                 m["a2a_overflow"] = ms["a2a_overflow"].sum()   # the chunk

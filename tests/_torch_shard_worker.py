@@ -17,7 +17,8 @@ sharded checkpoints (restored into the world and into other layouts, a
 failed save), mesh serving, a bf16-parameter state's sharded checkpoint
 and mesh serving, the overflow policy, `entry.dryrun_rank` and
 the CLI's `main`, on the test's dataset saved in <dir>/data; a (2, 1)
-world the 'local' data-parallel step. It imports no JAX and nothing of
+world the 'local' data-parallel step and `scripts.scaling.measure` at
+N=2 on the test's dataset. It imports no JAX and nothing of
 the JAX package; the file has no test_ prefix, so pytest does not collect
 it.
 """
@@ -40,6 +41,7 @@ from score_tpu_torch.data.schema import load_dataset
 from score_tpu_torch.graph import (DeviceGraph, device_graph, gather_batch,
                                    gather_candidate_batch, mesh_graph)
 from score_tpu_torch.params import init_params
+from score_tpu_torch.scripts import scaling
 from score_tpu_torch.serve import ScoringService
 from score_tpu_torch.sharding import (a2a_lookup, all_gather_world, bringup,
                                       full_tables, make_mesh, psum_lookup)
@@ -126,6 +128,7 @@ CLI_ARGS = ("model.embed_dim=8", "model.hidden_dim=8", "model.mlp_dims=16,8",
             "train.batch_size=512", "train.num_epochs=1",
             "train.eval_max_targets=256", "train.log_every_steps=1000000000")
 SERVE_ITEMS, SERVE_USERS, SERVE_WIDTH = 21, 4, 64
+SCALING_BATCH, SCALING_STEPS = 16, 2      # a rank's batch; timed steps
 DRIVER_METRICS = ("auc", "ndcg@10", "hr@10", "mrr")
 
 
@@ -543,6 +546,13 @@ def run_part2(mesh, work, inp, res):
                                          out["test"]["auc"]])
 
 
+def run_scaling(mesh, work, res):
+    """The scaling harness's measure at N = the world's size."""
+    ds = load_dataset(os.path.join(work, "data"))
+    res["scaling.examples_per_s"] = _every_rank(mesh, [scaling.measure(
+        mesh.size, SCALING_BATCH, SCALING_STEPS, ds, device="cpu")])
+
+
 def main(rank: int, world: int, data: int, rows: int, work: str) -> None:
     torch.set_num_threads(1)
     mesh, lookup_fn = bringup(
@@ -564,6 +574,7 @@ def main(rank: int, world: int, data: int, rows: int, work: str) -> None:
     else:
         run_steps(mesh, x, {"local": PORT_CASES["local"]}, res,
                   port_init=True)
+        run_scaling(mesh, work, res)
     dist.barrier()
     dist.destroy_process_group()
     if rank == 0:

@@ -7,7 +7,9 @@ the validation split, serve and train a baseline arch (DELF), run the
 training CLI from a raw CSV log to its test line (configs3, and configs0
 with its preset's uniform negatives), and run the entry points
 (score_tpu_torch/entry.py: the forward and the sharded dry run), and
-import the quality protocol's modules (score_tpu_torch/scripts).
+import the quality protocol's modules (score_tpu_torch/scripts), and
+run the reference-scale scripts' host side (prep_bench's CSV without
+pandas, perf_sweep's refusals, a scaling step).
 And the port's copies of that host layer (config presets, the synthetic
 generator, dataset prep and its CSV reader, the batch iterator) give
 what the JAX package's give."""
@@ -250,6 +252,40 @@ print("QUALITY", tag, sorted(mods))
 """
 
 
+# the reference-scale scripts, each imported with JAX, pandas and
+# score_tpu blocked; the prep benchmark run at a tiny size (its CSV
+# written and read back without pandas), a JAX-only perf_sweep variant
+# refused, and the scaling harness stepping on the CPU
+SCALE_SCRIPTS = BLOCK + r"""
+import importlib
+import os
+import tempfile
+
+import torch
+
+torch.set_num_threads(2)
+names = ("prep_bench", "eval_scale", "serve_bench", "perf_sweep", "scaling",
+         "machine")
+mods = {n: importlib.import_module(f"score_tpu_torch.scripts.{n}")
+        for n in names}
+out = os.path.join(tempfile.gettempdir(), "prep.json")
+res = mods["prep_bench"].main(["events=20000", "csv_rows=4000",
+                               "users=400", "items=1500", f"out={out}"],
+                              device="cpu")
+assert res["csv_rows_per_s"] > 0 and res["events_kept"] > 0, res
+try:
+    mods["perf_sweep"].check_names(["b2048_pallas"])
+    raise AssertionError("a JAX-only variant ran")
+except ValueError as e:
+    assert "pallas_coattn" in str(e)
+ds = mods["scaling"].scaling_dataset()
+eps = mods["scaling"].measure(1, 16, 1, ds, device="cpu")
+loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+assert not loaded, loaded
+print("SCALE", res["events_kept"], eps > 0, sorted(mods))
+"""
+
+
 def _run_blocked(script, tmp_path):
     root = Path(__file__).resolve().parents[1]
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -280,6 +316,13 @@ def test_quality_scripts_import_without_jax(tmp_path):
     proc = _run_blocked(QUALITY_SCRIPTS, tmp_path)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.startswith("QUALITY taobao_crossattr_"), proc.stdout
+
+
+def test_scale_scripts_run_without_jax(tmp_path):
+    proc = _run_blocked(SCALE_SCRIPTS, tmp_path)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    last = proc.stdout.splitlines()[-1]
+    assert last.startswith("SCALE ") and " True " in last, proc.stdout
 
 
 @pytest.mark.parametrize("name", ["configs0", "configs1", "configs2",

@@ -6,7 +6,7 @@ Two gloo worlds on the CPU, each rank a process running
 tests/_torch_shard_worker.py, both started once for the module: a
 (data=2, rows=2) world for the psum and a2a lookups, the a2a capacity and
 overflow, and the sharded steps; a (2, 1) world for the 'local'
-data-parallel step. The JAX references are computed here, meanwhile, on
+data-parallel step and the scaling harness at N=2. The JAX references are computed here, meanwhile, on
 the fake mesh tests/conftest.py provides (make_mesh(jax.devices()[:4],
 data=2, rows=2)); inputs and results pass as .npz files. The (2, 2) world
 then runs the rest of configs4 on the test's dataset (saved in its
@@ -458,8 +458,7 @@ def worlds(tiny_dataset, tmp_path_factory):
         for name, world, data, rows in (("w4", 4, 2, 2), ("w2", 2, 2, 1)):
             work = tmp_path_factory.mktemp(name)
             np.savez(work / "inputs.npz", **inp)
-            if name == "w4":
-                save_dataset(ds, str(work / "data"))
+            save_dataset(ds, str(work / "data"))
             runs[name] = (work, _spawn(work, world, data, rows))
         mesh = jsh.make_mesh(jax.devices()[:4], data=2, rows=2)
         ref = _jax_lookups(mesh, inp)
@@ -704,6 +703,16 @@ def test_local_data_parallel_step_matches_unsharded(worlds):
                                    err_msg=key, **LOSS_TOL)
         _close_params(_params(res, key), _params(res, plain), key)
         assert int(res[f"{key}.overflow"]) == 0
+
+
+def test_scaling_measure_at_two_ranks(worlds):
+    """scripts.scaling.measure(2, ...) in the (2, 1) world: configs3's
+    step under the data-parallel mesh of factor_mesh(2), each rank its
+    rows of every global batch; every rank returns a finite positive
+    rate."""
+    rates = worlds["w2"]["scaling.examples_per_s"]
+    assert rates.shape == (2, 1), rates
+    assert np.isfinite(rates).all() and (rates > 0).all(), rates
 
 
 # --- the graph, the driver, checkpoints and serving under a mesh -----------
