@@ -28,6 +28,8 @@ from score_tpu_torch.serve import ScoringService
 from score_tpu_torch.train import (init_state, item_importance_weights,
                                    step_shifts, train, train_step)
 
+from _torch_helpers import bounded
+
 torch.set_num_threads(2)
 
 B = 64
@@ -82,7 +84,7 @@ def test_save_restore_roundtrip(tiny_dataset, tmp_path):
     ds = tiny_dataset
     state = Driver(ds).run(_state(ds), TargetIterator(ds.train, B), 1)
     mgr = CheckpointManager(str(tmp_path / "ck"))
-    mgr.save("latest", state, (2, 7), 0.81, 123, block=True)
+    bounded(mgr.save, "latest", state, (2, 7), 0.81, 123, block=True)
     assert mgr.has("latest") and not mgr.has("best")
     restored = mgr.restore("latest", state)
     assert restored["step"] == 123
@@ -119,7 +121,7 @@ def test_resume_continues_exactly(tiny_dataset, tmp_path):
     first = drv.run(_state(ds), it, 3)
     mgr = CheckpointManager(str(tmp_path / "resume"))
     mgr.save("latest", first, it.get_state(), 0.5, first.step)
-    mgr.wait()
+    bounded(mgr.wait)
 
     resumed = _state(ds, seed=1)                  # another init
     restored = mgr.restore("latest", resumed)
@@ -138,7 +140,7 @@ def test_failed_write_keeps_previous_checkpoint(tiny_dataset, tmp_path,
     ds = tiny_dataset
     state = _state(ds)
     mgr = CheckpointManager(str(tmp_path / "crash"))
-    mgr.save("latest", state, (0, 0), 0.5, 0, block=True)
+    bounded(mgr.save, "latest", state, (0, 0), 0.5, 0, block=True)
     before = {k: v.clone() for k, v in state.model.state_dict().items()}
     state = Driver(ds).run(state, TargetIterator(ds.train, B), 2)
 
@@ -148,7 +150,7 @@ def test_failed_write_keeps_previous_checkpoint(tiny_dataset, tmp_path,
 
     monkeypatch.setattr(tckpt.torch, "save", torn_save)
     with pytest.raises(RuntimeError, match="checkpoint save failed"):
-        mgr.save("latest", state, (0, 2 * B), 0.6, 2, block=True)
+        bounded(mgr.save, "latest", state, (0, 2 * B), 0.6, 2, block=True)
     monkeypatch.undo()
     assert os.listdir(mgr.directory) == ["latest.pt"]
     restored = mgr.restore("latest", state)

@@ -34,6 +34,8 @@ from score_tpu_torch.data import prep_common as tprep
 from score_tpu_torch.data import prep_datasets as tprep_ds
 from score_tpu_torch.data import synth as tsynth
 
+from _torch_helpers import assert_same_dataset, untimed_meta
+
 BLOCK = r"""
 import importlib.abc
 import sys
@@ -351,27 +353,13 @@ def test_data_copies_equal(mode):
               min_user=2, min_item=2, seed=2)
     tds, jds = tprep.build_dataset(*got, **kw), jprep.build_dataset(*want,
                                                                     **kw)
-    _assert_same_dataset(tds, jds)
+    assert_same_dataset(tds, jds)
     ti, ji = (tpipeline.TargetIterator(tds.train, 16, seed=1),
               jpipeline.TargetIterator(jds.train, 16, seed=1))
     for _ in range(tds.train.user.size // 16 + 2):   # across an epoch
         a, b = next(ti), next(ji)
         for k in ("user", "item", "slot"):
             np.testing.assert_array_equal(a[k], b[k])
-
-
-def _assert_same_dataset(tds, jds):
-    for f in dataclasses.fields(jds.graph):
-        np.testing.assert_array_equal(getattr(tds.graph, f.name),
-                                      getattr(jds.graph, f.name),
-                                      err_msg=f.name)
-    for split in ("train", "val", "test"):
-        for f in ("user", "item", "slot", "neg"):
-            a, b = getattr(getattr(tds, split), f), getattr(
-                getattr(jds, split), f)
-            assert (a is None) == (b is None), (split, f)
-            if a is not None:
-                np.testing.assert_array_equal(a, b, err_msg=f"{split}.{f}")
 
 
 def test_prep_taobao_equal(tmp_path):
@@ -384,8 +372,8 @@ def test_prep_taobao_equal(tmp_path):
               min_item=3, num_eval_neg=7, seed=1)
     tds = tprep_ds.prep_taobao(str(tmp_path / "port"), raw_path=raw, **kw)
     jds = jprep_ds.prep_taobao(str(tmp_path / "ref"), raw_path=raw, **kw)
-    _assert_same_dataset(tds, jds)
-    assert tds.meta == jds.meta
+    assert_same_dataset(tds, jds)
+    assert untimed_meta(tds) == untimed_meta(jds)
 
 
 @pytest.mark.parametrize("dataset", ["ccmr", "tmall"])
@@ -400,8 +388,8 @@ def test_prep_ccmr_and_tmall_equal(tmp_path, dataset):
               min_item=3, num_eval_neg=7, seed=1)
     tds = tprep_ds.PREP[dataset](str(tmp_path / "port"), raw_path=raw, **kw)
     jds = jprep_ds.PREP[dataset](str(tmp_path / "ref"), raw_path=raw, **kw)
-    _assert_same_dataset(tds, jds)
-    assert tds.meta == jds.meta
+    assert_same_dataset(tds, jds)
+    assert untimed_meta(tds) == untimed_meta(jds)
 
 
 @pytest.mark.parametrize("usecols", [(0, 1, 4), (4, 0, 2)])

@@ -36,6 +36,8 @@ from score_tpu_torch.checkpoint import CheckpointManager, apply_restore
 from score_tpu_torch.params import (from_flax, init_params,
                                     opt_state_from_optax, to_flax)
 
+from _torch_helpers import bounded
+
 torch.set_num_threads(2)
 
 B = 64
@@ -300,7 +302,7 @@ def test_checkpoint_round_trip(tiny_dataset, tmp_path, opt):
     for j in range(3):
         a, _ = ttrain.train_step(a, tg, batches[j], [j + 1], neg_iw)
     mgr = CheckpointManager(str(tmp_path))
-    mgr.save("latest", a, (0, 3), 0.5, 3, block=True)
+    bounded(mgr.save, "latest", a, (0, 3), 0.5, 3, block=True)
     restored = mgr.restore("latest", torch.device("cpu"))
     assert restored["opt_state"]["name"] == opt
     assert restored["opt_state"]["count"] == 3

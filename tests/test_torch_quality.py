@@ -31,6 +31,8 @@ from score_tpu.data import prep_datasets as jprep_ds
 from score_tpu_torch.scripts import (bf16_quality, ladder, negmode_quality,
                                      resample_ablation, table_stride_ablation)
 
+from _torch_helpers import assert_same_dataset, untimed_meta
+
 torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -156,21 +158,6 @@ def tmp_root(tmp_path_factory):
     tempfile.tempdir = saved
 
 
-def _assert_same_dataset(tds, jds):
-    for f in dataclasses.fields(jds.graph):
-        np.testing.assert_array_equal(getattr(tds.graph, f.name),
-                                      getattr(jds.graph, f.name),
-                                      err_msg=f.name)
-    for split in ("train", "val", "test"):
-        for f in ("user", "item", "slot", "neg"):
-            a = getattr(getattr(tds, split), f)
-            b = getattr(getattr(jds, split), f)
-            assert (a is None) == (b is None), (split, f)
-            if a is not None:
-                np.testing.assert_array_equal(a, b, err_msg=f"{split}.{f}")
-    assert tds.meta == jds.meta
-
-
 @pytest.mark.parametrize("mode,fanout", [("crossattr", 10),
                                          ("crossattr", 20), ("collab", 10)])
 def test_ladder_dataset_is_the_jax_prep(tmp_root, mode, fanout):
@@ -185,7 +172,8 @@ def test_ladder_dataset_is_the_jax_prep(tmp_root, mode, fanout):
         str(tmp_root / f"jax_{mode}_{fanout}"),
         raw_path=str(tmp_root / f"jax_{mode}.csv"), synth_kw=kw, **over)
     assert tds.graph.u2i.shape[-1] == fanout
-    _assert_same_dataset(tds, jds)
+    assert_same_dataset(tds, jds)
+    assert untimed_meta(tds) == untimed_meta(jds)
 
 
 # --- main() writes the JAX scripts' schema ----------------------------------

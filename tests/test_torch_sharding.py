@@ -55,6 +55,7 @@ from score_tpu_torch.params import from_flax, init_params, to_flax
 from score_tpu_torch.serve import ScoringService
 
 import _torch_shard_worker as worker
+from _torch_helpers import bounded
 
 torch.set_num_threads(2)
 
@@ -348,7 +349,7 @@ def _join(work: Path, procs: list) -> dict:
         for p, log in procs:
             if p.poll() is None:
                 p.kill()
-                p.wait()
+                p.wait(timeout=JOIN_TIMEOUT_S)
             log.close()
     return dict(np.load(work / "results.npz"))
 
@@ -888,8 +889,8 @@ def test_restore_reads_only_the_files_of_its_rows(worlds, monkeypatch,
     state = SimpleNamespace(
         model=SimpleNamespace(state_dict=lambda: whole["params"]),
         opt=SimpleNamespace(state=lambda: whole["opt_state"]))
-    flat.save("best", state, (0, 0), whole["best_val"], whole["step"],
-              block=True)
+    bounded(flat.save, "best", state, (0, 0), whole["best_val"],
+            whole["step"], block=True)
     opened = []
     real = tckpt.torch.load
     monkeypatch.setattr(tckpt.torch, "load", lambda f, **kw: (
