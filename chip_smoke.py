@@ -54,13 +54,22 @@ fails or no CUDA device is present.
    configs3's d=64 training, eval and serving shapes, d=128 at training
    and d=32 with n = m = 40 rows; two runs of the backward bit-equal; the
    tuned kernels must not launch.
+2d. [gru]: the GRU recurrence's kernel (csrc/gru.cu) against the op-by-op
+   bf16 path and the f32 recurrence at the serving (262,144 x 9) and eval
+   (206,848 x 9) shapes, at d = f = 16, 64 and 128, N off the 16-row tile,
+   T = 1 and T = 40: no farther from the f32 recurrence than the plain
+   path, widest and mean, masked slots carried bit for bit; its time eager
+   and by graph beside its bound and the plain path's, and at the serving
+   and eval shapes under other launch shapes (`python3 chip_smoke.py gru`
+   runs [device] and this phase alone).
 3. Serving, for each co-attention pool (sum, max, mean): ScoringService on
    the configs3 model at the benchmark's width (bench.py: d=32, hidden 64,
    MLP 128/64, T=9, n=m=10, bf16 compute) over a synthetic 50k-user /
    100k-item / 2M-event dataset, with random weights from a seed. score,
    score_batch and a full-catalogue topk run through the forward kernels
    (launch counters checked: the candidates kernel for sum, the per-pair
-   kernel for max and mean, never the other), and a 4 x 256 request
+   kernel for max and mean, never the other; the GRU kernel for every GRU
+   call, none op by op), and a 4 x 256 request
    matches the same service on the CPU, in f32 and in bf16. p50 latency,
    score_batch throughput and topk time.
 4. Training: the configs3 train step as bench.py configures it (batch
@@ -244,7 +253,9 @@ CUDA graph; the wide kernels their d=64 training shape's, sum pool, with
 the launches of the [d64] sum-pool run; the scatter-add also its bf16
 form's, `bf16_*`, with the launches of the [bf16params] run; the four
 kernels of the quality protocol their launches in [quality],
-`quality_launches`); the last line is
+`quality_launches`; the GRU kernel its serving shape's, its eval shape's
+time and bound, and its launches in [serve]'s three runs,
+`serve_launches`); the last line is
 {"ok": true, "device": {...}}. Every timing line carries the card's name
 and power limit.
 """
@@ -1240,6 +1251,131 @@ def phase_coattn_wide(card: str, dev, gen) -> dict:
     return {k: dict(max_abs_err=worst[k], **v) for k, v in line.items()}
 
 
+# --- phase 2d: the GRU recurrence ------------------------------------------
+
+# (label, N sequences, d, f) of the GRU kernel's checks: the serving shape
+# (1,024 requests x the 256-candidate bucket), the eval shape (2,048 x 101),
+# the widths 16, 64 and 128, and N off the 16-row tile
+GRU_SHAPES = [("serve", 262144, 32, 64), ("eval", 206848, 32, 64),
+              ("d16", 4099, 16, 16), ("d64", 4099, 64, 64),
+              ("d128", 4099, 128, 128)]
+# launch shapes tried at the serving and eval shapes: (warps, steps a chunk)
+GRU_LAUNCHES = [(8, 9), (8, 3), (8, 2), (8, 1), (4, 3)]
+
+
+def gru_inputs(gen, dev, N: int, d: int, f: int, Tn: int = T):
+    """xs [N, Tn, d] and lecun-normal Wx, Wh with a small bias, bf16, and a
+    mask whose rows cycle through all valid, a valid prefix (the slot mask
+    serving gives), leading invalid slots, interior holes and none valid."""
+    xs = torch.randn(N, Tn, d, generator=gen, device=dev).to(torch.bfloat16)
+    Wx = (torch.randn(d, 3 * f, generator=gen, device=dev) / d ** 0.5
+          ).to(torch.bfloat16)
+    Wh = (torch.randn(f, 3 * f, generator=gen, device=dev) / f ** 0.5
+          ).to(torch.bfloat16)
+    b = (0.1 * torch.randn(3 * f, generator=gen, device=dev)
+         ).to(torch.bfloat16)
+    t = torch.arange(Tn, device=dev)
+    k = torch.randint(1, Tn + 1, (N, 1), generator=gen, device=dev)
+    holes = torch.rand(N, Tn, generator=gen, device=dev) < 0.7
+    kind = torch.arange(N, device=dev)[:, None] % 5
+    mask = torch.where(kind == 0, True, torch.where(
+        kind == 1, t < k, torch.where(kind == 2, t >= k - 1,
+                                      torch.where(kind == 3, holes, False))))
+    return xs, mask, Wx, Wh, b
+
+
+def gru_errors(xs, mask, Wx, Wh, b) -> dict:
+    """The kernel and the op-by-op bf16 path, each against the f32
+    recurrence on the same bf16 values: their widest and mean gaps, the
+    kernel's widest gap from the plain path, and whether masked slots
+    carry the state bit for bit (all-invalid rows exact zeros)."""
+    from score_tpu_torch.kernels.gru import gru_fwd, gru_fwd_plain
+    got = gru_fwd(xs, mask, Wx, Wh, b)
+    plain = gru_fwd_plain(xs, mask, Wx, Wh, b)
+    exact = gru_fwd_plain(xs.float(), mask, Wx.float(), Wh.float(),
+                          b.float())
+    torch.cuda.synchronize()
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError("gru_fwd: non-finite states")
+    prev = torch.cat([torch.zeros_like(got[:, :1]), got[:, :-1]], dim=1)
+    carried = bool((got[~mask] == prev[~mask]).all())
+    ek = (got.float() - exact).abs()
+    ep = (plain.float() - exact).abs()
+    out = dict(kernel_max=ek.max().item(), kernel_mean=ek.mean().item(),
+               plain_max=ep.max().item(), plain_mean=ep.mean().item(),
+               vs_plain=(got.float() - plain.float()).abs().max().item(),
+               carried=carried)
+    del got, plain, exact, prev, ek, ep
+    return out
+
+
+def _gru_work(xs, mask, Wx, Wh, b) -> tuple:
+    """Compulsory bytes (xs, mask and weights read once, hs written once)
+    and ms of gate products at the bf16 tensor-core peak."""
+    N, Tn, d = xs.shape
+    f = Wh.shape[0]
+    moved = nbytes(xs, mask, Wx, Wh, b) + N * Tn * f * 2
+    mma_ms = N * Tn * 2 * (d + f) * 3 * f / BF16_MMA_FLOPS_PER_S * 1e3
+    return moved, 0.0, mma_ms
+
+
+def phase_gru(card: str, dev, gen) -> dict:
+    """The GRU kernel (csrc/gru.cu) against the op-by-op path and the f32
+    recurrence at GRU_SHAPES, and at the serving shape with T = 1 and T =
+    40 (chunks of fewer steps than T); its time eager and by graph beside
+    its bound and the plain path's, and at the serving and eval shapes
+    under each of GRU_LAUNCHES. The kernel must be no farther from the f32
+    recurrence than the plain path is, widest and mean, and carry masked
+    slots bit for bit. Returns the kernels-line fields at the serving
+    shape."""
+    from score_tpu_torch.kernels import gru
+    gru.gru_fwd.launches = 0
+    line = {}
+    cases = [(label, N, d, f, T) for label, N, d, f in GRU_SHAPES]
+    cases += [("serve T=1", 262144, 32, 64, 1),
+              ("T=40", 16411, 32, 64, 40)]
+    for label, N, d, f, Tn in cases:
+        args = gru_inputs(gen, dev, N, d, f, Tn)
+        tag = (f"[gru] {label} N={N} T={Tn} d={d} f={f} launch "
+               f"{gru.launch_shape(Tn, d, f)}")
+        e = gru_errors(*args)
+        log(f"{tag}: vs the f32 recurrence kernel max {e['kernel_max']:.3e}"
+            f" mean {e['kernel_mean']:.3e}, plain max {e['plain_max']:.3e} "
+            f"mean {e['plain_mean']:.3e}; kernel vs plain max "
+            f"{e['vs_plain']:.3e}; masked slots carried {e['carried']}")
+        if not (e["carried"] and e["kernel_max"] <= e["plain_max"]
+                and e["kernel_mean"] <= e["plain_mean"]):
+            raise AssertionError(f"{tag}: {e}")
+        if Tn != T:
+            continue
+        ms = cuda_ms(lambda: gru.gru_fwd(*args))
+        gms = graph_ms(lambda: gru.gru_fwd(*args))
+        plain_ms = cuda_ms(lambda: gru.gru_fwd_plain(*args), iters=3)
+        bd = bound(*_gru_work(*args))
+        log(f"{tag}: kernel {ms:.4f} ms ({gms:.4f} by graph), plain "
+            f"{plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+            f"({bd['bound_by']}), {ms / bd['bound_ms']:.2f}x [{card}]")
+        if label in ("serve", "eval"):
+            shape = gru.launch_shape
+            try:
+                for warps, tc in GRU_LAUNCHES:
+                    gru.launch_shape = lambda *_: (warps, tc)
+                    sweep = graph_ms(lambda: gru.gru_fwd(*args))
+                    log(f"{tag} at {warps} warps, chunks of {tc}: "
+                        f"{sweep:.4f} ms by graph [{card}]")
+            finally:
+                gru.launch_shape = shape
+        if label == "serve":
+            line = dict(ms=ms, graph_ms=gms, plain_ms=plain_ms,
+                        library_ms=None, max_abs_err=e["vs_plain"], **bd)
+        if label == "eval":
+            line.update(eval_shape_ms=ms, eval_shape_bound_ms=bd["bound_ms"])
+        del args
+        torch.cuda.empty_cache()
+    log(f"[gru] launches {gru.gru_fwd.launches}")
+    return line
+
+
 # --- the dataset and the configuration ---------------------------------------
 
 def bench_dataset(fanout: int = FAN, tag: str = "[data]"):
@@ -1387,14 +1523,21 @@ def phase_serving(card: str, ds, pool: str = "sum",
     items16 = rng.integers(1, ds.num_items + 1, (ROWS, WIDE)).astype(np.int32)
 
     # the serving run whose launches the counters report
+    from score_tpu_torch.kernels.gru import gru_fwd
     fns = reset_counts()
+    gru_fwd.launches = gru_fwd.plain_calls = 0
     s1 = svc.score(u, items100)
     sb = svc.score_batch(users16, items16)
     top_i, top_s = svc.topk(u, k=10)
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in fns.items()}
-    log(f"[serve {pool}] launches in the serving run: {launches}")
+    log(f"[serve {pool}] launches in the serving run: {launches}; the GRU "
+        f"kernel {gru_fwd.launches}, op-by-op GRUs {gru_fwd.plain_calls}")
     check_launches(f"serving, pool {pool}", launches, SERVE_KERNELS[pool])
+    if device == "cuda" and (gru_fwd.launches == 0 or gru_fwd.plain_calls):
+        raise AssertionError(f"serving, pool {pool}: every bf16 GRU call "
+                             f"must take the kernel")
+    launches["gru_fwd"] = gru_fwd.launches
     for name, arr, shape in (("score", s1, (100,)),
                              ("score_batch", sb, (ROWS, WIDE)),
                              ("topk", top_s, (10,))):
@@ -3538,6 +3681,9 @@ def main() -> int:
     mark("[device]")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    if sys.argv[1:] == ["gru"]:
+        print(json.dumps({"gru": phase_gru(card, dev, gen)}), flush=True)
+        return 0
     gather = phase_gather(card, dev, gen)
     coattn = phase_coattn(card, dev, gen)
     pair = phase_coattn_pair(card, dev, gen)
@@ -3548,8 +3694,10 @@ def main() -> int:
     mark("the tuned kernels' phases and [data]")
     wide = phase_coattn_wide(card, dev, gen)
     mark("[coattn_wide]")
-    for pool in ("sum", "max", "mean"):
-        phase_serving(card, ds, pool)
+    gru = phase_gru(card, dev, gen)
+    mark("[gru]")
+    gru_serving = [phase_serving(card, ds, pool)["gru_fwd"]
+                   for pool in ("sum", "max", "mean")]
     launches = phase_training(card, ds, dev)              # sum pool
     launches_pair = phase_training(card, ds, dev, "mean")
     phase_training(card, ds, dev, "max", steps=MAX_POOL_STEPS)
@@ -3625,6 +3773,11 @@ def main() -> int:
              replaces="score_tpu/kernels/coattn_cand.py:301 and "
                       "score_tpu/kernels/coattn.py:241 past d, n, m = 32",
              launches=launches_wide["cross_coattn_wide_bwd"], **wide["bwd"]),
+        dict(name="gru_fwd", route="cuda",
+             source="score_tpu_torch/csrc/gru.cu",
+             replaces="none: score_tpu/nn/encoder.py's GRU cell under "
+                      "lax.scan, which XLA fuses",
+             serve_launches=gru_serving, **gru),
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

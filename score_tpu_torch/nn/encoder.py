@@ -7,7 +7,9 @@ h' = (1-z)*n + z*h with a second bias):
     r = sigmoid(x Wxr + h Whr + br)
     c = tanh(x Wxc + r * (h Whc) + bc)
     h' = (1 - z) * h + z * c
-Masked steps (padded slots) carry h through unchanged.
+Masked steps (padded slots) carry h through unchanged. On a CUDA device
+in bf16 with no gradient to keep (serving, evaluation) the whole recurrence
+is one hand-written kernel (`kernels/gru.py`); elsewhere it runs op by op.
 """
 
 from __future__ import annotations
@@ -15,31 +17,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..kernels import gru
 from .coattn import masked_softmax
-
-
-class _Logistic(torch.autograd.Function):
-    """The logistic function in bf16 as the reference's lowering computes
-    it, 1 / (1 + exp(-x)) with every op rounded to bf16 (torch.sigmoid
-    rounds once, and differs in the last bit on many inputs); its
-    gradient g * y * (1 - y), JAX's rule and torch.sigmoid's kernel."""
-
-    @staticmethod
-    def forward(ctx, x):
-        y = torch.exp(-x).add_(1.0).reciprocal_()
-        ctx.save_for_backward(y)
-        return y
-
-    @staticmethod
-    def backward(ctx, g):
-        (y,) = ctx.saved_tensors
-        return torch.ops.aten.sigmoid_backward(g, y)
-
-
-def _sigmoid(x: torch.Tensor) -> torch.Tensor:
-    if x.dtype == torch.bfloat16:
-        return _Logistic.apply(x)
-    return torch.sigmoid(x)
 
 
 class GRU(nn.Module):
@@ -55,22 +34,16 @@ class GRU(nn.Module):
         self.b = nn.Parameter(torch.zeros(3 * features))
 
     def forward(self, xs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        B, T, d = xs.shape
         dt = xs.dtype
         Wx, Wh, b = self.wx.to(dt), self.wh.to(dt), self.b.to(dt)
-        # the input projection of every step in one product
-        gx_all = (xs.reshape(B * T, d) @ Wx + b).reshape(B, T, -1)
-        f = Wh.shape[0]
-        h = torch.zeros(B, f, dtype=dt, device=xs.device)
-        hs = []
-        for t in range(T):
-            gx_zr, gx_c = gx_all[:, t].split([2 * f, f], dim=-1)
-            gh_zr, gh_c = (h @ Wh).split([2 * f, f], dim=-1)
-            z, r = _sigmoid(gx_zr + gh_zr).chunk(2, dim=-1)  # one call
-            c = torch.tanh(gx_c + r * gh_c)
-            h = torch.where(mask[:, t, None], (1.0 - z) * h + z * c, h)
-            hs.append(h)
-        return torch.stack(hs, dim=1)
+        needs_grad = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xs, Wx, Wh, b))
+        if gru.uses_kernel(xs.device.type, dt, xs.shape[-1], Wh.shape[0],
+                           needs_grad):
+            return gru.gru_fwd(xs, mask, Wx, Wh, b)
+        if xs.is_cuda:
+            gru.gru_fwd.plain_calls += 1
+        return gru.gru_fwd_plain(xs, mask, Wx, Wh, b)
 
 
 class AttnPool(nn.Module):

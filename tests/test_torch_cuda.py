@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card: the
-gather and its scatter-add, and the candidates-form (sum pool) and
+gather and its scatter-add, the candidates-form (sum pool) and
 per-pair (sum, mean, max) co-attention, forward and backward, both on the
-tuned kernels (d, n, m <= 32) and on the wide ones past that. And
+tuned kernels (d, n, m <= 32) and on the wide ones past that, and the GRU
+recurrence of the inference path. And
 checkpoints on the card: a saved state restores onto the card bit-equal,
 and a resumed `train()` agrees with a straight one.
 
@@ -16,7 +17,8 @@ random sources it agrees to 1e-5 relative (f32 atomics add in no fixed
 order), and its bf16 form to 1 bf16 ulp of the exact sum rounded once.
 The co-attention forward and backward are f32 inside, so f32 outputs
 agree to 1e-4 (another summation order) and bf16 outputs to 2e-2 (one
-bf16 rounding of values of order 1)."""
+bf16 rounding of values of order 1). The GRU kernel is held to the f32
+recurrence: no farther than the op-by-op bf16 path, and within GRU_TOL."""
 
 import dataclasses
 
@@ -1282,3 +1284,100 @@ def test_sharded_lookup_in_a_one_rank_nccl_world(cuda, tmp_path, mode):
                                        atol=1e-5 * scale)
     finally:
         dist.destroy_process_group()
+
+
+def _gru_inputs(N, T, d, f, device):
+    """bf16 xs [N, T, d], lecun-normal Wx and Wh and a small bias, and a
+    mask whose rows cycle through all valid, a valid prefix (the slot mask
+    serving gives), leading invalid slots, interior holes and none
+    valid."""
+    rng = np.random.default_rng(N * 131 + T * 17 + d + f)
+    f32 = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    xs = f32(N, T, d).to(torch.bfloat16)
+    Wx = (f32(d, 3 * f) / d ** 0.5).to(torch.bfloat16)
+    Wh = (f32(f, 3 * f) / f ** 0.5).to(torch.bfloat16)
+    b = (0.1 * f32(3 * f)).to(torch.bfloat16)
+    t = np.arange(T)[None]
+    k = rng.integers(1, T + 1, (N, 1))
+    kind = np.arange(N)[:, None] % 5
+    mask = np.select([kind == 0, kind == 1, kind == 2, kind == 3],
+                     [np.ones((N, T), bool), t < k, t >= k - 1,
+                      rng.random((N, T)) < 0.7], False).astype(bool)
+    return [x.to(device) for x in (xs, torch.from_numpy(mask), Wx, Wh, b)]
+
+
+# (N, T, d, f) of the GRU kernel against the op-by-op path: the serving
+# shape (1,024 requests x the 256-candidate bucket) and the eval shape
+# (2,048 x 101), d and f of 16, 64 and 128 and mixed, N off the 16-row
+# tile, one step, and 40 steps (chunks of fewer steps than T)
+GRU_CASES = [(262144, 9, 32, 64), (206848, 9, 32, 64),
+             (1001, 9, 16, 16), (1001, 9, 64, 64), (1001, 9, 128, 128),
+             (999, 9, 16, 128), (999, 9, 128, 16), (17, 9, 32, 64),
+             (1, 9, 32, 64), (1003, 40, 32, 64), (1003, 1, 32, 64)]
+
+
+@pytest.mark.parametrize("N,T,d,f", GRU_CASES)
+def test_gru_kernel(cuda, N, T, d, f):
+    """The kernel against the op-by-op bf16 path (`gru_fwd_plain`), both
+    held to the f32 recurrence on the same bf16 values. The kernel's
+    gates are f32 and it rounds h to bf16 once a step, where the op-by-op
+    path rounds each of ~10 ops a step, over 9 steps: so it must be no
+    farther from the f32 recurrence than the plain path, widest and mean,
+    and within GRU_TOL of it; masked slots carry the state bit for bit
+    and rows with no valid slot are exact zeros."""
+    from score_tpu_torch.kernels import gru
+    xs, mask, Wx, Wh, b = _gru_inputs(N, T, d, f, cuda)
+    before = gru.gru_fwd.launches
+    got = gru.gru_fwd(xs, mask, Wx, Wh, b)
+    plain = gru.gru_fwd_plain(xs, mask, Wx, Wh, b)
+    exact = gru.gru_fwd_plain(xs.float(), mask, Wx.float(), Wh.float(),
+                              b.float())
+    torch.cuda.synchronize()
+    assert gru.gru_fwd.launches == before + 1
+    assert got.shape == (N, T, f) and got.dtype == torch.bfloat16
+    prev = torch.cat([torch.zeros_like(got[:, :1]), got[:, :-1]], dim=1)
+    assert torch.equal(got[~mask], prev[~mask])
+    assert not got[~mask.any(dim=1)].any()
+    ek = (got.float() - exact).abs()
+    ep = (plain.float() - exact).abs()
+    assert ek.max() <= ep.max() and ek.mean() <= ep.mean(), \
+        (ek.max().item(), ep.max().item(), ek.mean().item(), ep.mean().item())
+    assert ek.max() <= GRU_TOL, ek.max().item()
+
+
+# the kernel's widest gap from the f32 recurrence: 4 bf16 ulps of a state
+# in [0.5, 1) (2^-8 each), h rounded once a step and that rounding carried
+# over 9 steps (on an H100: 7.3e-3 at most over the serving and eval
+# shapes, where the op-by-op path reads 1.6e-2)
+GRU_TOL = 2 ** -6
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_gru_module_routes_by_grad_mode(cuda, grad):
+    """nn.encoder.GRU in bf16 on the card: under inference mode one kernel
+    launch, and the module's output is the kernel's; where a gradient is
+    needed the op-by-op path (counted in plain_calls), differentiable."""
+    from score_tpu_torch.kernels import gru
+    from score_tpu_torch.nn.encoder import GRU
+    xs, mask, Wx, Wh, b = _gru_inputs(64, 9, 32, 64, cuda)
+    m = GRU(32, 64).to(cuda)
+    with torch.no_grad():
+        for p, v in ((m.wx, Wx), (m.wh, Wh), (m.b, b)):
+            p.copy_(v.float())
+    count = lambda: (gru.gru_fwd.launches, gru.gru_fwd.plain_calls)
+    before = count()
+    if grad:
+        hs = m(xs, mask)
+        after = count()
+        hs.float().sum().backward()
+        assert m.wh.grad is not None
+        want = gru.gru_fwd_plain(xs, mask, Wx, Wh, b)
+    else:
+        with torch.inference_mode():
+            hs = m(xs, mask)
+        after = count()
+        want = gru.gru_fwd(xs, mask, Wx, Wh, b)
+    torch.cuda.synchronize()
+    assert (after[0] - before[0], after[1] - before[1]) == (
+        (0, 1) if grad else (1, 0))
+    assert torch.equal(hs.detach(), want)
